@@ -2,13 +2,14 @@
 """Headline benchmark: SELL-pack SpMV on a web-Google-scale power-law matrix.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N,
+   "device": {"platform": ..., "kind": ..., "count": N}, "power_limit": ...}
 
 vs_baseline compares 2*nnz GFLOPS against the reference CVR binary's
 webGraph-domain average on its own target hardware (7.28 GFLOPS on a
 68-core Xeon Phi KNL, CVR paper Table 3 — see BASELINE.md).
 
-Usage: python bench.py [--quick] [--impl sell-routed|sell-xla|csr]
+Usage: python bench.py [--quick] [--impl auto|sell|dia|bell|csr]
                        [--iters N] [--json-only]
 """
 
@@ -25,7 +26,7 @@ CVR_KNL_WEBGRAPH_GFLOPS = 7.28
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="small matrix")
-    ap.add_argument("--impl", default="sell-routed")
+    ap.add_argument("--impl", default="auto")
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument(
         "--pack-repeats",
@@ -34,8 +35,7 @@ def main() -> int:
         help="pack timing = min over N repeats (first run also reported "
         "when N > 1).  Default 1 = one COLD pack, matching the reference "
         "protocol (spmv.cpp:575,1009 times a single conversion) so the "
-        "amortize metric stays comparable to the paper's cold-pack 2.14; "
-        "opt into min-over-N on this ±40%-variance single-core host.",
+        "amortize metric stays comparable to the paper's cold-pack 2.14.",
     )
     ap.add_argument("--json-only", action="store_true")
     args = ap.parse_args()
@@ -50,6 +50,7 @@ def main() -> int:
 
     _enable_cache()
 
+    from cvr_tpu import platform
     from cvr_tpu.bench.harness import run_spmv_benchmark
     from cvr_tpu.bench.synthetic import rmat_matrix, web_google_like
 
@@ -82,6 +83,8 @@ def main() -> int:
                 "vs_baseline": round(
                     r.gflops_2nnz / CVR_KNL_WEBGRAPH_GFLOPS, 3
                 ),
+                "device": platform.device_info().as_dict(),
+                "power_limit": r.power_limit,
             }
         )
     )

@@ -3,12 +3,15 @@
 Provides the fast paths for MatrixMarket parsing, COO->CSR assembly and
 the SELL-pack converter; every caller has a pure-NumPy fallback, so the
 package works without the compiled library (``CVR_TPU_NO_NATIVE=1``
-disables it explicitly).  Build with ``make -C native``.
+disables it explicitly).  The library is built with ``make -C native``
+on first use, and rebuilt whenever the hash of the source and Makefile
+differs from the stamp written beside it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from pathlib import Path
@@ -17,9 +20,11 @@ import numpy as np
 
 _LIB = None
 _TRIED = False
+build_error = ""  # why the last build failed, for reports
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent
 _SO_PATH = _REPO_ROOT / "native" / "libcvr_native.so"
+_STAMP_PATH = _SO_PATH.with_suffix(".stamp")
 
 FIELD_NAMES = {0: "real", 1: "integer", 2: "pattern", 3: "complex"}
 SYM_NAMES = {0: "general", 1: "symmetric", 2: "skew-symmetric", 3: "hermitian"}
@@ -28,23 +33,51 @@ _i64 = ctypes.c_int64
 _i32 = ctypes.c_int32
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-_i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 
-def _build_if_needed() -> bool:
-    if _SO_PATH.exists():
+def source_hash(native_dir: Path | None = None) -> str:
+    """sha256 of the native source and Makefile: the build's identity."""
+    d = native_dir or _SO_PATH.parent
+    h = hashlib.sha256()
+    for name in ("cvr_native.cpp", "Makefile"):
+        h.update((d / name).read_bytes())
+    return h.hexdigest()
+
+
+def _build_if_needed(so_path: Path | None = None) -> bool:
+    """Build the library unless one stamped with this source's hash exists.
+
+    A library built from other source (or copied in from another host)
+    is rebuilt.  The build writes a private file and renames it into
+    place, so concurrent processes never load a half-written library.
+    """
+    so_path = so_path or _SO_PATH
+    stamp = so_path.with_suffix(".stamp")
+    want = source_hash(so_path.parent)
+    if so_path.exists() and stamp.exists() and stamp.read_text() == want:
         return True
+    global build_error
+    tmp = f"{so_path.name}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["make", "-C", str(_SO_PATH.parent)],
+            ["make", "-B", "-C", str(so_path.parent), f"TARGET={tmp}"],
             check=True,
             capture_output=True,
-            timeout=120,
+            text=True,
+            timeout=300,
         )
-        return _SO_PATH.exists()
-    except Exception:
+    except subprocess.CalledProcessError as e:
+        build_error = (e.stdout + e.stderr)[-2000:]
         return False
+    except (OSError, subprocess.SubprocessError) as e:
+        build_error = repr(e)
+        return False
+    os.replace(so_path.parent / tmp, so_path)
+    stamp_tmp = stamp.with_name(f"{stamp.name}.{os.getpid()}.tmp")
+    stamp_tmp.write_text(want)
+    os.replace(stamp_tmp, stamp)
+    return True
 
 
 def get_lib():
@@ -57,9 +90,11 @@ def get_lib():
         return None
     if not _build_if_needed():
         return None
+    global build_error
     try:
         lib = ctypes.CDLL(str(_SO_PATH))
-    except OSError:
+    except OSError as e:
+        build_error = repr(e)
         return None
 
     lib.cvr_last_error.restype = ctypes.c_char_p
@@ -92,82 +127,20 @@ def get_lib():
         _i64, _i64, _i64p, _i32p, _f32p, _i32p, _i32p, _i32p, _i64p,
         _i32p, _f32p, _i32p,
     ]
-    lib.cvr_euler_color.restype = ctypes.c_int
-    lib.cvr_euler_color.argtypes = [_i64, _i32p, _i32p, _i64, _i32, _i32p]
-    lib.cvr_euler_color_rows.restype = ctypes.c_int
-    lib.cvr_euler_color_rows.argtypes = [
-        _i64, _i64, _i32, _i32p, _i32p, _i32p,
-    ]
     _i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
-    lib.cvr_route_planes.restype = ctypes.c_int
-    lib.cvr_route_planes.argtypes = [
-        _i64, _i32p, _i32p, _i64, _i16p, _i32p, _i16p,
-    ]
-    lib.cvr_mid_planes.restype = ctypes.c_int
-    lib.cvr_mid_planes.argtypes = [_i64, _i32p, _i32p, _i16p, _i16p, _i16p]
-    lib.cvr_mid_edges.restype = ctypes.c_int
-    lib.cvr_mid_edges.argtypes = [_i64, _i32p, _i32p, _i32p]
-    lib.cvr_window_minmax.restype = ctypes.c_int
-    lib.cvr_window_minmax.argtypes = [
-        _i64, _i64, _i64, _i64p, _i32p, _i64p, _i64, _i32p, _i32p,
-        _i32p,
-    ]
-    lib.cvr_window_fill_ss.restype = ctypes.c_int
-    lib.cvr_window_fill_ss.argtypes = [
-        _i64, _i64, _i64, _i64p, _i32p, _f32p, _i64p, _i64p, _i32p,
-        _i64, _i32p, _f32p, _i16p,
-    ]
     lib.cvr_bsr_count.restype = _i64
     lib.cvr_bsr_count.argtypes = [_i64, _i64, _i64p, _i32p]
     lib.cvr_bsr_fill.restype = ctypes.c_int
     lib.cvr_bsr_fill.argtypes = [
         _i64, _i64, _i64p, _i32p, _f32p, _i64, _i32p, _i32p, _f32p,
     ]
-    lib.cvr_stream_count.restype = _i64
-    lib.cvr_stream_count.argtypes = [
-        _i64, _i64, _i64p, _i32p, _i64, _i64, _i64, _i64p,
-    ]
-    lib.cvr_stream_fill.restype = ctypes.c_int
-    lib.cvr_stream_fill.argtypes = [
-        _i64, _i64, _i64p, _i32p, _i64, _i64, _i64, _i64p, _i64,
-        _i32p, _i16p, _i32p, _i32p,
-    ]
-    lib.cvr_stream_count2.restype = _i64
-    lib.cvr_stream_count2.argtypes = [
-        _i64, _i64, _i64p, _i32p, _i64, _i64, _i64, _i64p,
-    ]
-    lib.cvr_stream_fill2.restype = ctypes.c_int
-    lib.cvr_stream_fill2.argtypes = [
-        _i64, _i64, _i64p, _i32p, _i64, _i64, _i64, _i64p, _i64,
-        _i32p, _i16p, _i32p, _i8p, _i32p,
-    ]
-    lib.cvr_euler_color_perm.restype = ctypes.c_int
-    lib.cvr_euler_color_perm.argtypes = [_i64, _i32p, _i64, _i32p]
-    lib.cvr_route_planes_fused.restype = ctypes.c_int
-    lib.cvr_route_planes_fused.argtypes = [
-        _i64, _i32p, _i32p, _i64, _i64, _i16p, _i16p, _i32p, _i16p,
-    ]
-    lib.cvr_color_rows_cap.restype = ctypes.c_int
-    lib.cvr_color_rows_cap.argtypes = [_i64, _i64, _i32p, _i32p]
-    lib.cvr_mid_planes_ss.restype = ctypes.c_int
-    lib.cvr_mid_planes_ss.argtypes = [
-        _i64, _i32p, _i32p, _i16p, _i16p, _i16p,
-    ]
+    _i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
     _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     lib.cvr_dia_offsets.restype = ctypes.c_int
     lib.cvr_dia_offsets.argtypes = [_i64, _i64, _i64p, _i32p, _u8p]
-    lib.cvr_route_planes_ss2.restype = ctypes.c_int
-    lib.cvr_route_planes_ss2.argtypes = [
-        _i64, _i32p, _i32p, _i64, _i64, _i16p, _i32p, _i16p,
-    ]
     lib.cvr_dia_fill.restype = ctypes.c_int
     lib.cvr_dia_fill.argtypes = [
         _i64, _i64, _i64p, _i32p, _f32p, _i64, _i64p, _f32p,
-    ]
-    lib.cvr_route_compile.restype = ctypes.c_int
-    lib.cvr_route_compile.argtypes = [
-        _i64, _i32p, _i64, _i64, _i64, ctypes.c_void_p, _i16p, _i32p,
-        _i16p,
     ]
     lib.cvr_bell_stats.restype = ctypes.c_int64
     lib.cvr_bell_stats.argtypes = [_i64, _i64p, _i32p, _i64, _i32p]
@@ -176,17 +149,7 @@ def get_lib():
         _i64, _i64p, _i32p, _f32p, _i64, _i64, _i64, _i64,
         _i16p, _f32p, _i64, _i32p, _i32p, _f32p,
     ]
-    lib.cvr_route_compile_zone.restype = ctypes.c_int
-    lib.cvr_route_compile_zone.argtypes = [
-        _i64, _i32p, _i64, _i64, _i64, ctypes.c_void_p, _i16p, _i32p,
-        _i16p, _i64, _i64p, _i32p, _i64, _i32p, _i32p,
-    ]
-    lib.cvr_zone_scatter.restype = ctypes.c_int
-    lib.cvr_zone_scatter.argtypes = [
-        _i64, _i64, _i64p, _i64, _i64p, _i32p, _i64p, _i64, _i32p,
-        _f32p, _i32p, _f32p,
-    ]
-    if lib.cvr_version() != 16:
+    if lib.cvr_version() != 17:
         return None
     _LIB = lib
     return _LIB
@@ -332,128 +295,6 @@ def sell_pack_native(rowptr, csr_cols, csr_vals, C: int, split_len: int):
     )
 
 
-def euler_color_native(src, dst, n_tiles: int, k: int):
-    """k-edge-coloring of the k-regular bipartite tile multigraph (the
-    routing assignment for cvr_tpu.ops.route; see native euler_split)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    n_edges = src.shape[0]
-    color = np.empty(n_edges, dtype=np.int32)
-    rc = lib.cvr_euler_color(n_edges, src, dst, n_tiles, k, color)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return color
-
-
-def route_planes_native(perm, colors, T: int):
-    """Build s1/mid/s3 int16 planes in one native pass."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    n = perm.shape[0]
-    s1 = np.empty((T, 1024), dtype=np.int16)
-    mid = np.empty((1024, T), dtype=np.int32)
-    s3 = np.empty((T, 1024), dtype=np.int16)
-    rc = lib.cvr_route_planes(n, perm, colors, T, s1, mid, s3)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return s1, mid, s3
-
-
-def mid_planes_native(mid, T: int, colors_rows):
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    m1 = np.empty((T, 1024), dtype=np.int16)
-    csel = np.empty((T, 1024), dtype=np.int16)
-    m3 = np.empty((T, 1024), dtype=np.int16)
-    rc = lib.cvr_mid_planes(T, mid, colors_rows, m1, csel, m3)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return m1, csel, m3
-
-
-def mid_edges_native(mid, T: int):
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    src = np.empty(1024 * T, dtype=np.int32)
-    dst = np.empty(1024 * T, dtype=np.int32)
-    rc = lib.cvr_mid_edges(T, mid, src, dst)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return src, dst
-
-
-def euler_color_rows_native(src, dst, n_rows: int, tk: int, k: int):
-    """Batched independent per-row colorings (recursive route middle)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    color = np.empty(src.shape[0], dtype=np.int32)
-    rc = lib.cvr_euler_color_rows(n_rows, tk, k, src, dst, color)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return color
-
-
-def window_minmax_native(
-    nrows, C, D, rowptr, csr_cols, slice_offsets, perm=None
-):
-    """Per-plane-row column min/max straight from CSR (SELL-W pass 1).
-
-    perm: plane position -> CSR row (identity when None) — the
-    sigma-sorted pack's block-local length ordering."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    S = int(slice_offsets[-1])
-    wmin = np.empty(S, dtype=np.int32)
-    wmax = np.empty(S, dtype=np.int32)
-    if perm is None:
-        perm = np.arange(nrows, dtype=np.int32)
-    rc = lib.cvr_window_minmax(
-        nrows, C, D,
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(csr_cols, dtype=np.int32),
-        np.ascontiguousarray(slice_offsets, dtype=np.int64),
-        S, np.ascontiguousarray(perm, dtype=np.int32), wmin, wmax,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return wmin, wmax
-
-
-def window_fill_ss_native(
-    nrows, C, D, rowptr, csr_cols, csr_vals, slice_offsets, rmap,
-    base_col, S_pad, perm=None,
-):
-    """Value + in-window-offset planes, directly in padded sublane-split
-    stream layout (SELL-W pass 2)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    vals_ss = np.zeros((8, S_pad, 128), dtype=np.float32)
-    li_ss = np.zeros((8, S_pad, 128), dtype=np.int16)
-    if perm is None:
-        perm = np.arange(nrows, dtype=np.int32)
-    rc = lib.cvr_window_fill_ss(
-        nrows, C, D,
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(csr_cols, dtype=np.int32),
-        np.ascontiguousarray(csr_vals, dtype=np.float32),
-        np.ascontiguousarray(slice_offsets, dtype=np.int64),
-        np.ascontiguousarray(rmap, dtype=np.int64),
-        np.ascontiguousarray(base_col, dtype=np.int32),
-        S_pad, np.ascontiguousarray(perm, dtype=np.int32),
-        vals_ss, li_ss,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return vals_ss, li_ss
-
-
 def bsr_count_native(nrows, ncb, rowptr, csr_cols) -> int:
     """Occupied 128x128 brick count (BSR pass 1)."""
     lib = get_lib()
@@ -486,262 +327,6 @@ def bsr_fill_native(nrows, ncb, rowptr, csr_cols, csr_vals, nbricks):
     if rc != 0:
         raise NativeError(native_error(lib))
     return brick_row, brick_col, bvals
-
-
-def stream_build_native(
-    rmap, cols_plane, S_padded: int, nwin_total: int, segw: int, TB: int,
-    force_T: int = 0,
-):
-    """Routed-pack stream builder: counting sort of plane elements by
-    1024-column window, per-segment TB padding, route perm + li planes in
-    two native passes (replaces the numpy argsort/scatter path).
-
-    Returns (perm int32[T*1024], li_flat int16[T*1024], w8 int32[T],
-    seg_blk int32[T//TB], T, T_src_p).
-    """
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    rmap = np.ascontiguousarray(rmap, dtype=np.int64)
-    cols_plane = np.ascontiguousarray(cols_plane, dtype=np.int32)
-    S = rmap.shape[0]
-    wcnt = np.empty(nwin_total, dtype=np.int64)
-    T_src_p = int(
-        lib.cvr_stream_count(
-            S, S_padded, rmap, cols_plane, nwin_total, segw, TB, wcnt
-        )
-    )
-    T = -(-max(T_src_p, S_padded) // 1024) * 1024
-    if force_T:
-        if force_T < T:
-            raise ValueError(f"force_T {force_T} < required T {T}")
-        T = force_T
-    perm = np.empty(T * 1024, dtype=np.int32)
-    li_flat = np.empty(T * 1024, dtype=np.int16)
-    w8 = np.empty(T, dtype=np.int32)
-    seg_blk = np.empty(T // TB, dtype=np.int32)
-    rc = lib.cvr_stream_fill(
-        S, S_padded, rmap, cols_plane, nwin_total, segw, TB, wcnt, T,
-        perm, li_flat, w8, seg_blk,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return perm, li_flat, w8, seg_blk, T, T_src_p
-
-
-def stream_build2_native(
-    rmap, cols_plane, S_padded: int, nsw_total: int, segw: int, TB: int,
-    force_T: int = 0,
-):
-    """Subwindow-granular routed-pack stream builder (v10).
-
-    Tiles slide at 128-column granularity: far fewer fillers than the
-    window-aligned v9 builder, and each tile carries its gather-candidate
-    count for the expand kernel's class dispatch.  ``segw`` stays in
-    1024-column windows (segw * 8 subwindows per x segment).
-
-    Returns (perm int32[T*1024], li_flat int16[T*1024],
-    w8 int32[T] segment-relative sublane bases, cand int8[T],
-    seg_blk int32[T//TB], T, T_src_p).
-    """
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    rmap = np.ascontiguousarray(rmap, dtype=np.int64)
-    cols_plane = np.ascontiguousarray(cols_plane, dtype=np.int32)
-    S = rmap.shape[0]
-    segw8 = segw * 8
-    swcnt = np.empty(nsw_total, dtype=np.int64)
-    T_src_p = int(
-        lib.cvr_stream_count2(
-            S, S_padded, rmap, cols_plane, nsw_total, segw8, TB, swcnt
-        )
-    )
-    T = -(-max(T_src_p, S_padded) // 1024) * 1024
-    if force_T:
-        if force_T < T:
-            raise ValueError(f"force_T {force_T} < required T {T}")
-        T = force_T
-    perm = np.empty(T * 1024, dtype=np.int32)
-    li_flat = np.empty(T * 1024, dtype=np.int16)
-    w8 = np.empty(T, dtype=np.int32)
-    cand = np.empty(T, dtype=np.int8)
-    seg_blk = np.empty(T // TB, dtype=np.int32)
-    rc = lib.cvr_stream_fill2(
-        S, S_padded, rmap, cols_plane, nsw_total, segw8, TB, swcnt, T,
-        perm, li_flat, w8, cand, seg_blk,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return perm, li_flat, w8, cand, seg_blk, T, T_src_p
-
-
-def euler_color_perm_native(perm, T: int):
-    """Edge coloring with dst(i) = i >> 10 derived, src = perm >> 10."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    perm = np.ascontiguousarray(perm, dtype=np.int32)
-    color = np.empty(perm.shape[0], dtype=np.int32)
-    rc = lib.cvr_euler_color_perm(perm.shape[0], perm, T, color)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return color
-
-
-def route_planes_fused_native(perm, colors, T: int, S_pad: int, li_flat):
-    """Stage planes in sublane-split device layout with the stage-1 li
-    composition fused.  Returns (li_ss (8,T,128) i16, mid (1024,T) i32,
-    p3_ss (8,S_pad,128) i16)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    n = perm.shape[0]
-    li_ss = np.zeros((8, T, 128), dtype=np.int16)
-    mid = np.empty((1024, T), dtype=np.int32)
-    p3_ss = np.zeros((8, S_pad, 128), dtype=np.int16)
-    rc = lib.cvr_route_planes_fused(
-        n, perm, colors, T, S_pad,
-        np.ascontiguousarray(li_flat, dtype=np.int16), li_ss, mid, p3_ss,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return li_ss, mid, p3_ss
-
-
-def color_rows_cap_native(mid, T: int, tk: int):
-    """Per-row chunk colorings on the aggregated capacity matrix."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    mid = np.ascontiguousarray(mid, dtype=np.int32)
-    color = np.empty(1024 * T, dtype=np.int32)
-    rc = lib.cvr_color_rows_cap(T, tk, mid, color)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return color
-
-
-def mid_planes_ss_native(mid, T: int, colors_rows):
-    """Recursive-middle planes directly in sublane-split device layout
-    (8, T, 128) — skips the numpy relayout pass."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    m1 = np.zeros((8, T, 128), dtype=np.int16)
-    csel = np.zeros((8, T, 128), dtype=np.int16)
-    m3 = np.zeros((8, T, 128), dtype=np.int16)
-    rc = lib.cvr_mid_planes_ss(T, mid, colors_rows, m1, csel, m3)
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return m1, csel, m3
-
-
-def route_planes_ss_native(perm, colors, T: int, Tp: int):
-    """Stage planes straight in sublane-split layout (padded tiles are
-    identity); returns (s1_ss, mid, s3_ss)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    s1 = np.zeros((8, Tp, 128), dtype=np.int16)
-    mid = np.empty((1024, T), dtype=np.int32)
-    s3 = np.zeros((8, Tp, 128), dtype=np.int16)
-    rc = lib.cvr_route_planes_ss2(
-        perm.shape[0], perm, colors, T, Tp, s1, mid, s3
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return s1, mid, s3
-
-
-def route_compile_native(perm, T: int, Tp: int, S_dst: int, li_flat=None):
-    """Fused Euler coloring + plane emission (one native call): returns
-    (s1_ss (8,Tp,128) i16, mid (1024,T) i32, p3_ss (8,S_dst,128) i16).
-    With li_flat, s1 carries the stage-1 li composition (expand plane);
-    without, the raw offsets (y-route).  Replaces the
-    euler_color_perm + route_planes pair — the colors array is never
-    materialized and the final Euler level emits the planes directly."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    perm = np.ascontiguousarray(perm, dtype=np.int32)
-    s1 = np.zeros((8, Tp, 128), dtype=np.int16)
-    mid = np.empty((1024, T), dtype=np.int32)
-    p3 = np.zeros((8, S_dst, 128), dtype=np.int16)
-    if li_flat is not None:
-        li_flat = np.ascontiguousarray(li_flat, dtype=np.int16)
-        li_ptr = li_flat.ctypes.data
-    else:
-        li_ptr = None
-    rc = lib.cvr_route_compile(
-        perm.shape[0], perm, T, Tp, S_dst, li_ptr, s1, mid, p3
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return s1, mid, p3
-
-
-def route_compile_zone_native(
-    perm, T: int, Tp: int, S_dst: int, li_flat, nslA: int, zr0, zw,
-    zrows: int, row_slice,
-):
-    """Fused route compile with zone-A lambda-segment slices (v4): the
-    first three Euler levels pair the dst side per (slice, lane) block
-    and a positional re-scatter sets every zone-A edge's slot sublane
-    equal to its color's top-3 bits — the reduce's stage-3 becomes one
-    lane-gather per sublane (ops/pallas_route.py fast kernels).
-
-    Returns (s1_ss, mid, p3_ss, r2) where r2[final] = provisional plane
-    position (permute the value planes with it)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    perm = np.ascontiguousarray(perm, dtype=np.int32)
-    s1 = np.zeros((8, Tp, 128), dtype=np.int16)
-    mid = np.empty((1024, T), dtype=np.int32)
-    p3 = np.zeros((8, S_dst, 128), dtype=np.int16)
-    r2 = np.empty(perm.shape[0], dtype=np.int32)
-    li_flat = np.ascontiguousarray(li_flat, dtype=np.int16)
-    rc = lib.cvr_route_compile_zone(
-        perm.shape[0], perm, T, Tp, S_dst, li_flat.ctypes.data, s1, mid,
-        p3, nslA,
-        np.ascontiguousarray(zr0, dtype=np.int64),
-        np.ascontiguousarray(zw, dtype=np.int32),
-        zrows,
-        np.ascontiguousarray(row_slice, dtype=np.int32),
-        r2,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return s1, mid, p3, r2
-
-
-def zone_scatter_native(
-    oldoff, zsl_old: int, zr0, lane_len, rmapB, S_padded: int,
-    cols_plane, vals_plane,
-):
-    """Scatter the SELL planes into the routed provisional layout
-    (zone-A lambda-segment slices + zone-B row shift) in one pass.
-    Returns (cols_prov (S_padded,1024) i32, vals_prov f32)."""
-    lib = get_lib()
-    if lib is None:
-        raise NativeError("native library unavailable")
-    oldoff = np.ascontiguousarray(oldoff, dtype=np.int64)
-    cols_plane = np.ascontiguousarray(cols_plane, dtype=np.int32)
-    vals_plane = np.ascontiguousarray(vals_plane, dtype=np.float32)
-    S_old = cols_plane.shape[0]
-    cols_out = np.empty((S_padded, 1024), dtype=np.int32)
-    vals_out = np.empty((S_padded, 1024), dtype=np.float32)
-    rc = lib.cvr_zone_scatter(
-        S_old, oldoff.shape[0] - 1, oldoff, zsl_old,
-        np.ascontiguousarray(zr0, dtype=np.int64),
-        np.ascontiguousarray(lane_len, dtype=np.int32),
-        np.ascontiguousarray(rmapB, dtype=np.int64),
-        S_padded, cols_plane, vals_plane, cols_out, vals_out,
-    )
-    if rc != 0:
-        raise NativeError(native_error(lib))
-    return cols_out, vals_out
 
 
 def dia_offsets_native(rowptr, cols, nrows: int, ncols: int):

@@ -58,23 +58,22 @@ def rmat_matrix(
 
     rng = np.random.default_rng(seed)
     d = 1.0 - a - b - c
-    rows = np.zeros(nnz, dtype=np.int64)
-    cols = np.zeros(nnz, dtype=np.int64)
-    # Inverse-CDF sampling of the quadrant, one uniform draw per level
-    # (much faster than rng.choice with probabilities).
-    cdf = np.cumsum([a, b, c, d])[:3]
+    rows = np.zeros(nnz, dtype=np.int32)
+    cols = np.zeros(nnz, dtype=np.int32)
+    # Inverse-CDF sampling of the quadrant, one f32 uniform draw per
+    # level: q = #{cdf_k < u} (searchsorted's answer, in three compares).
+    cdf = np.cumsum([a, b, c, d])[:3].astype(np.float32)
     for _level in range(scale):
-        u = rng.random(nnz)
-        q = np.searchsorted(cdf, u).astype(np.int64)
-        rows = (rows << 1) | (q >> 1)
-        cols = (cols << 1) | (q & 1)
+        u = rng.random(nnz, dtype=np.float32)
+        q = (u > cdf[0]).astype(np.int32)
+        q += u > cdf[1]
+        q += u > cdf[2]
+        rows <<= 1
+        rows |= q >> 1
+        cols <<= 1
+        cols |= q & 1
     vals = rng.standard_normal(nnz).astype(dtype)
-    coo = COOMatrix(
-        rows=rows.astype(np.int32),
-        cols=cols.astype(np.int32),
-        vals=vals,
-        shape=(n, n),
-    ).sum_duplicates()
+    coo = COOMatrix(rows=rows, cols=cols, vals=vals, shape=(n, n)).sum_duplicates()
     if cache and scale >= 16:
         np.savez(cpath, rows=coo.rows, cols=coo.cols, vals=coo.vals)
     return coo

@@ -4,7 +4,7 @@ Reproduces the reference's UX — ``./spmv.cvr <file.mtx> <threads> <iters>``
 (spmv.cpp:1693-1712, README.md:26-28) — as subcommands:
 
   python -m cvr_tpu.cli spmv <file.mtx> [--iters N]
-      [--format auto|bell|dia|routed|window|sell|csr|bsr|lane|pmm]
+      [--format auto|bell|dia|sell|csr|bsr]
       [--rhs K] [--c C]
       [--sigma S] [--no-verify]
       [--save-packed out.npz] [--load-packed in.npz]
@@ -13,8 +13,8 @@ Reproduces the reference's UX — ``./spmv.cvr <file.mtx> <threads> <iters>``
 
 ``compare`` runs every implementation on the same matrix and prints the
 greppable metric table, mirroring run_comparison.sh.  ``--threads`` is
-accepted for reference CLI compatibility and ignored (parallelism on TPU
-comes from the mesh, not a thread count).
+accepted for reference CLI compatibility and ignored (parallelism on the
+GPU comes from the device, not a thread count).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def cmd_spmv(args) -> int:
     if args.format == "bsr":
         print(
             "error: --format bsr is an SpMM format (dense 128x128 "
-            "bricks on the MXU); use it with --rhs K > 1",
+            "bricks); use it with --rhs K > 1",
             file=sys.stderr,
         )
         return 2
@@ -57,21 +57,10 @@ def cmd_spmv(args) -> int:
     if args.load_packed:
         return _spmv_prepacked(args, coo)
 
-    impl = {
-        "auto": "auto",
-        "bell": "bell",
-        "dia": "dia",
-        "routed": "sell-routed",
-        "sell-routed": "sell-routed",
-        "window": "sell-window",
-        "sell-window": "sell-window",
-        "sell": "sell-xla",
-        "csr": "csr",
-    }[args.format]
     r = run_spmv_benchmark(
         coo,
         name=args.matrix,
-        impl=impl,
+        impl=args.format,
         iters=args.iters,
         C=args.c,
         sigma=args.sigma,
@@ -79,42 +68,27 @@ def cmd_spmv(args) -> int:
     )
     r.print_report()
     if args.save_packed:
-        if impl == "sell-routed":
-            from cvr_tpu.formats.sell_routed import (
-                save_routed,
-                sell_pack_routed,
-            )
-
-            save_routed(sell_pack_routed(coo.to_csr()), args.save_packed)
-        elif impl == "sell-window":
-            from cvr_tpu.formats.sell_window import sell_pack_window
-
-            sell_pack_window(coo.to_csr()).save(args.save_packed)
-        elif impl == "dia":
-            from cvr_tpu.formats.dia import dia_pack
-
-            dia_pack(coo.to_csr()).save(args.save_packed)
-        elif impl == "bell":
-            from cvr_tpu.formats.bell import bell_pack, save_bell
-
-            save_bell(bell_pack(coo.to_csr()), args.save_packed)
-        elif impl == "auto":
-            from cvr_tpu.formats import pack_auto
-            from cvr_tpu.formats.sell_routed import SellRouted, save_routed
-
-            packed = pack_auto(coo.to_csr())
-            if isinstance(packed, SellRouted):
-                save_routed(packed, args.save_packed)
-            else:
-                packed.save(args.save_packed)
-        else:
-            from cvr_tpu.formats.sell import sell_pack
-
-            sell_pack(
-                coo.to_csr(), C=args.c or 1024, sigma=args.sigma
-            ).save(args.save_packed)
+        _save_packed(args, coo.to_csr())
         print(f"packed artifact saved to {args.save_packed}")
     return 0 if r.verified in (True, None) else 1
+
+
+def _save_packed(args, csr) -> None:
+    from cvr_tpu.formats import pack_auto
+    from cvr_tpu.formats.bell import BellMatrix, bell_pack, save_bell
+    from cvr_tpu.formats.dia import dia_pack
+    from cvr_tpu.formats.sell import DEFAULT_C, sell_pack
+
+    packed = {
+        "auto": lambda: pack_auto(csr),
+        "bell": lambda: bell_pack(csr),
+        "dia": lambda: dia_pack(csr),
+        "sell": lambda: sell_pack(csr, C=args.c or DEFAULT_C, sigma=args.sigma),
+    }[args.format]()
+    if isinstance(packed, BellMatrix):
+        save_bell(packed, args.save_packed)
+    else:
+        packed.save(args.save_packed)
 
 
 def _spmv_prepacked(args, coo) -> int:
@@ -126,70 +100,24 @@ def _spmv_prepacked(args, coo) -> int:
 
     from cvr_tpu.bench.harness import time_fn_iterated
     from cvr_tpu.formats.sell import SellMatrix
-    from cvr_tpu.ops.spmv import sell_spmv_xla, to_device
     from cvr_tpu.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
 
-    fmt = args.format
-    if fmt == "auto":
-        # sniff the artifact kind from its keys
-        z = np.load(args.load_packed)
-        if "bell_meta" in z.files:
-            fmt = "bell"
-        elif "mid_kind" in z.files:
-            fmt = "routed"
-        elif "bands" in z.files:
-            fmt = "dia"
-        elif "w10" in z.files:
-            fmt = "window"
-        else:
-            fmt = "sell"
-    if fmt in ("routed", "sell-routed"):
-        from cvr_tpu.formats.sell_routed import load_routed
-        from cvr_tpu.ops.spmv_routed import spmv_routed, to_device_routed
+    from cvr_tpu.formats.bell import load_bell
+    from cvr_tpu.formats.dia import DiaMatrix
+    from cvr_tpu.ops.spmv import spmv_fn_of
 
-        srt = load_routed(args.load_packed)
-        if srt.shape != coo.shape:
-            print("packed artifact shape mismatch")
-            return 1
-        sd = to_device_routed(srt)
-        kernel = spmv_routed
-    elif fmt == "bell":
-        from cvr_tpu.formats.bell import load_bell
-        from cvr_tpu.ops.spmv_bell import spmv_bell, to_device_bell
-
-        bmx = load_bell(args.load_packed)
-        if bmx.shape != coo.shape:
-            print("packed artifact shape mismatch")
-            return 1
-        sd = to_device_bell(bmx)
-        kernel = spmv_bell
-    elif fmt == "dia":
-        from cvr_tpu.formats.dia import DiaMatrix
-        from cvr_tpu.ops.spmv_dia import spmv_dia, to_device_dia
-
-        dmx = DiaMatrix.load(args.load_packed)
-        if dmx.shape != coo.shape:
-            print("packed artifact shape mismatch")
-            return 1
-        sd = to_device_dia(dmx)
-        kernel = spmv_dia
-    elif fmt in ("window", "sell-window"):
-        from cvr_tpu.formats.sell_window import SellWindow
-        from cvr_tpu.ops.spmv_window import spmv_window, to_device_window
-
-        sww = SellWindow.load(args.load_packed)
-        if sww.shape != coo.shape:
-            print("packed artifact shape mismatch")
-            return 1
-        sd = to_device_window(sww)
-        kernel = spmv_window
+    # sniff the artifact kind from its keys
+    z = np.load(args.load_packed)
+    if "bell_meta" in z.files:
+        packed = load_bell(args.load_packed)
+    elif "bands" in z.files:
+        packed = DiaMatrix.load(args.load_packed)
     else:
-        sm = SellMatrix.load(args.load_packed)
-        if sm.shape != coo.shape:
-            print("packed artifact shape mismatch")
-            return 1
-        sd = to_device(sm)
-        kernel = sell_spmv_xla
+        packed = SellMatrix.load(args.load_packed)
+    if packed.shape != coo.shape:
+        print("packed artifact shape mismatch")
+        return 1
+    sd, kernel = spmv_fn_of(packed)
     x = np.ones(coo.shape[1], dtype=np.float32)
     t = time_fn_iterated(kernel, sd, jnp.asarray(x), iters=args.iters)
     print(
@@ -223,132 +151,38 @@ def _spmv_prepacked(args, coo) -> int:
 
 def _spmm(args, coo) -> int:
     from cvr_tpu.bench.harness import time_fn_iterated
+    from cvr_tpu.formats import pack_auto
+    from cvr_tpu.formats.bell import bell_pack
+    from cvr_tpu.formats.bsr import BsrInfeasible, bsr_pack
+    from cvr_tpu.formats.dia import dia_pack
+    from cvr_tpu.formats.sell import DEFAULT_C, sell_pack
+    from cvr_tpu.ops.spmv import spmm_fn_of
 
+    if args.format == "csr":
+        print("error: --format csr has no SpMM path", file=sys.stderr)
+        return 2
     csr = coo.to_csr()
     t0 = time.perf_counter()
-    sd = kernel = None
+    packed = None
     if args.format in ("auto", "bsr"):
-        # The MXU dense-brick path is the fastest SpMM by an order of
-        # magnitude when the matrix has block locality; auto falls back
-        # to the gather formats when the brick-fill gate rejects it.
-        from cvr_tpu.formats.bsr import BsrInfeasible, bsr_pack
-        from cvr_tpu.ops.pallas_bsr import bsr_spmm_pallas
-        from cvr_tpu.ops.spmm_bsr import to_device_bsr
-
+        # Dense bricks win when the matrix has block locality; auto falls
+        # back to the gather formats when the brick-fill gate rejects it.
         try:
-            sd = to_device_bsr(bsr_pack(csr))
-            kernel = bsr_spmm_pallas
+            packed = bsr_pack(csr)
         except BsrInfeasible as e:
             if args.format == "bsr":
                 print(f"error: {e}", file=sys.stderr)
                 return 2
-    if sd is not None:
-        pass
-    elif args.format == "auto":
-        from cvr_tpu.formats import pack_auto
-        from cvr_tpu.formats.bell import BellMatrix
-        from cvr_tpu.formats.dia import DiaMatrix
-        from cvr_tpu.formats.sell_routed import SellRouted
-        from cvr_tpu.ops.spmv_bell import spmm_bell, to_device_bell
-        from cvr_tpu.ops.spmv_dia import spmm_dia, to_device_dia
-        from cvr_tpu.ops.spmv_routed import spmm_routed, to_device_routed
-        from cvr_tpu.ops.spmv_window import spmm_window, to_device_window
-
-        packed = pack_auto(csr)
-        if isinstance(packed, DiaMatrix):
-            sd = to_device_dia(packed)
-            kernel = spmm_dia
-        elif isinstance(packed, BellMatrix):
-            sd = to_device_bell(packed)
-            kernel = spmm_bell
-        elif isinstance(packed, SellRouted):
-            # PMM gate first: on hub-concentrated column histograms
-            # (fsm-class, sampled window fan-in C <~ 8) the exact MXU
-            # perm-matmul path wins by ~5-7x at K=16-128 (70.6 useful
-            # GFLOPS at K=32 on fsm-like; docs/DESIGN.md round 5)
-            from cvr_tpu.ops.spmm_pmm import (
-                NS_LANE_PER_ELEM,
-                NS_ROUTED_PER_ELEM,
-                pmm_estimate,
-                pmm_plan,
-                pmm_projected_ms,
-                spmm_pmm,
-                to_device_pmm,
-            )
-
-            est = pmm_estimate(coo.rows, coo.cols, coo.shape)
-            pmm_ms = pmm_projected_ms(est, args.rhs)
-            routed_ms = args.rhs * coo.nnz * NS_ROUTED_PER_ELEM / 1e6
-            lane_ms = coo.nnz * NS_LANE_PER_ELEM / 1e6
-            if pmm_ms < min(routed_ms, lane_ms):
-                sd = to_device_pmm(
-                    pmm_plan(coo.rows, coo.cols, coo.vals, coo.shape)
-                )
-                kernel = spmm_pmm
-            elif args.rhs >= 96 and lane_ms < routed_ms:
-                # power-law SpMM at wide K: the lane path beats the
-                # vmapped route (15.3 vs 10.8 GFLOPS at K=128 on
-                # web-scale; docs/DESIGN.md "SpMM round 3")
-                from cvr_tpu.ops.spmm_lane import (
-                    spmm_lane,
-                    spmm_lane_pack,
-                    to_device_lane,
-                )
-
-                sd = to_device_lane(spmm_lane_pack(csr))
-                kernel = spmm_lane
-            else:
-                sd = to_device_routed(packed)
-                kernel = spmm_routed
-        else:
-            sd = to_device_window(packed)
-            kernel = spmm_window
-    elif args.format == "lane":
-        from cvr_tpu.ops.spmm_lane import (
-            spmm_lane,
-            spmm_lane_pack,
-            to_device_lane,
-        )
-
-        sd = to_device_lane(spmm_lane_pack(csr))
-        kernel = spmm_lane
-    elif args.format == "pmm":
-        from cvr_tpu.ops.spmm_pmm import pmm_plan, spmm_pmm, to_device_pmm
-
-        sd = to_device_pmm(
-            pmm_plan(coo.rows, coo.cols, coo.vals, coo.shape)
-        )
-        kernel = spmm_pmm
-    elif args.format == "bell":
-        from cvr_tpu.formats.bell import bell_pack
-        from cvr_tpu.ops.spmv_bell import spmm_bell, to_device_bell
-
-        sd = to_device_bell(bell_pack(csr))
-        kernel = spmm_bell
-    elif args.format in ("routed", "sell-routed"):
-        from cvr_tpu.formats.sell_routed import sell_pack_routed
-        from cvr_tpu.ops.spmv_routed import spmm_routed, to_device_routed
-
-        sd = to_device_routed(sell_pack_routed(csr))
-        kernel = spmm_routed
-    elif args.format in ("window", "sell-window"):
-        from cvr_tpu.formats.sell_window import sell_pack_window
-        from cvr_tpu.ops.spmv_window import spmm_window, to_device_window
-
-        sd = to_device_window(sell_pack_window(csr))
-        kernel = spmm_window
-    elif args.format == "dia":
-        from cvr_tpu.formats.dia import dia_pack
-        from cvr_tpu.ops.spmv_dia import spmm_dia, to_device_dia
-
-        sd = to_device_dia(dia_pack(csr))
-        kernel = spmm_dia
-    else:
-        from cvr_tpu.formats.sell import sell_pack
-        from cvr_tpu.ops.spmv import sell_spmm_xla, to_device
-
-        sd = to_device(sell_pack(csr, C=args.c or 1024, sigma=args.sigma))
-        kernel = sell_spmm_xla
+    if packed is None:
+        packed = {
+            "auto": lambda: pack_auto(csr),
+            "bell": lambda: bell_pack(csr),
+            "dia": lambda: dia_pack(csr),
+            "sell": lambda: sell_pack(
+                csr, C=args.c or DEFAULT_C, sigma=args.sigma
+            ),
+        }[args.format]()
+    sd, kernel = spmm_fn_of(packed)
     preproc = time.perf_counter() - t0
     X = np.ones((coo.shape[1], args.rhs), dtype=np.float32)
     import jax.numpy as jnp
@@ -387,42 +221,50 @@ def _spmm(args, coo) -> int:
 
 
 def cmd_compare(args) -> int:
-    """Run EVERY implementation on one matrix in one table — the
+    """Run every implementation on one matrix in one table — the
     run_comparison.sh analogue (reference runs 6 solutions per matrix,
     run_comparison.sh:20-45).  With --rhs K > 1 the SpMM formats (bsr /
-    routed / window / sell) are compared instead."""
+    dia / bell / sell) are compared instead."""
     coo = _load(args.matrix, args.pattern_values)
 
+    from cvr_tpu.formats.bell import BellInfeasible
+    from cvr_tpu.formats.dia import DiaInfeasible
+
+    # A structure gate that declines the matrix skips that format; a
+    # failed verification or any other error fails the command.
+    declined = (DiaInfeasible, BellInfeasible)
+    failed = 0
     if args.rhs > 1:
         import argparse as _ap
 
-        for fmt in ("bsr", "dia", "bell", "lane", "pmm", "routed",
-                    "window", "sell"):
+        for fmt in ("bsr", "dia", "bell", "sell"):
             sub = _ap.Namespace(**{**vars(args), "format": fmt})
             try:
-                _spmm(sub, coo)
-            except Exception as e:  # noqa: BLE001 — keep comparing
-                print(f"[{fmt}] failed: {type(e).__name__}: {e}")
-        return 0
+                failed += _spmm(sub, coo) == 1
+            except declined as e:
+                print(f"[{fmt}] skipped: {e}")
+        return 1 if failed else 0
 
     from cvr_tpu.bench.harness import run_spmv_benchmark
 
     results = []
-    for impl in ("csr", "sell-xla", "sell-routed", "sell-window", "dia", "bell"):
+    for impl in ("csr", "sell", "dia", "bell"):
         try:
             r = run_spmv_benchmark(
                 coo, name=args.matrix, impl=impl, iters=args.iters
             )
-            r.print_report(threads_label=impl)
-            results.append(r)
-        except Exception as e:  # noqa: BLE001 — keep comparing
-            print(f"[{impl}] failed: {type(e).__name__}: {e}")
+        except declined as e:
+            print(f"[{impl}] skipped: {e}")
+            continue
+        r.print_report(threads_label=impl)
+        results.append(r)
+        failed += r.verified is False
     if results:
         best = max(results, key=lambda r: r.gflops_2nnz)
         print(
             f"Best: {best.impl} at {best.gflops_2nnz:.3f} GFlops (2*nnz)"
         )
-    return 0
+    return 1 if failed else 0
 
 
 def cmd_info(args) -> int:
@@ -442,27 +284,6 @@ def cmd_info(args) -> int:
         f"fill={sm.fill_ratio:.3f} splits={sm.n_splits} "
         f"convert={sm.convert_time * 1e3:.1f} ms"
     )
-    # hub-column capture verdict (formats/hot.py): would the routed
-    # pack serve the hottest columns from a VMEM-resident table?
-    from cvr_tpu.formats.hot import plan_hot
-
-    plan = plan_hot(csr)
-    if plan is not None:
-        print(
-            f"hot-column capture: ON at NH={plan[0]} "
-            f"(predicted {plan[1] / 1e3:.0f} us/SpMV saving)"
-        )
-    else:
-        counts_top = int(
-            np.sort(np.bincount(csr.cols, minlength=csr.shape[1]))[::-1][
-                :1024
-            ].sum()
-        )
-        print(
-            "hot-column capture: off (top-1024 columns cover "
-            f"{counts_top / max(csr.nnz, 1):.1%} of nnz; the gate's "
-            "calibrated model predicts no net win)"
-        )
     return 0
 
 
@@ -488,10 +309,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--format",
         default="auto",
-        choices=[
-            "auto", "bell", "bsr", "dia", "lane", "pmm", "routed",
-            "sell-routed", "window", "sell-window", "sell", "csr",
-        ],
+        choices=["auto", "bell", "bsr", "dia", "sell", "csr"],
     )
     p.add_argument("--rhs", type=int, default=1, help="K for SpMM")
     p.add_argument("--c", type=int, default=None, help="SELL lane count")

@@ -4,11 +4,6 @@ from cvr_tpu.formats.coo import COOMatrix
 from cvr_tpu.formats.dia import DiaInfeasible, DiaMatrix, dia_pack
 from cvr_tpu.formats.csr import CSRMatrix
 from cvr_tpu.formats.sell import SellMatrix, sell_pack, sell_unpack
-from cvr_tpu.formats.sell_window import (
-    SellWindow,
-    WindowInfeasible,
-    sell_pack_window,
-)
 
 __all__ = [
     "BellInfeasible",
@@ -23,75 +18,32 @@ __all__ = [
     "COOMatrix",
     "CSRMatrix",
     "SellMatrix",
-    "SellWindow",
-    "WindowInfeasible",
     "sell_pack",
-    "sell_pack_window",
     "sell_unpack",
     "pack_auto",
 ]
 
 
-def pack_auto(csr: CSRMatrix, max_window_fill: float = 2.0):
-    """Pick the fastest packed format for this matrix.
+def pack_auto(csr: CSRMatrix):
+    """Pick the packed format for this matrix: DIA -> BELL -> SELL.
 
-    Tries SELL-W (the window/locality path — single fused kernel, O(nnz)
-    pack) first; matrices without column locality (power-law graphs)
-    raise WindowInfeasible and get the routed path (any structure, route
-    compiled at pack time).  This mirrors the reference's positioning of
-    CVR as the one format that handles both regular and scale-free
-    matrices (paper Table 3) — here the dispatch is explicit and the
-    artifact records which path it took.
-
-    max_window_fill: when the window pack's padding exceeds this factor
-    (short rows with high length variance — road-network class: slice
-    width is the MAX row length over 1024 natural-order rows), the
-    routed path's length-sorted packing wins on throughput despite its
-    route-compile cost; above the threshold the routed artifact is
-    returned instead.  Set it to inf to force the cheap-pack choice
-    (amortization-sensitive runs).  Throughput-optimal is the default,
-    matching the reference's Table 3 protocol (throughput excludes
-    pre-processing).
+    Each structure gate either accepts the matrix or raises its
+    ``*Infeasible``; SELL takes any structure.  This mirrors the
+    reference's positioning of CVR as the one format that handles both
+    regular and scale-free matrices (paper Table 3) — here the dispatch
+    is explicit and the artifact's type records which path it took.
     """
-    from cvr_tpu.formats.sell_routed import sell_pack_routed
-
     # Strictly banded/stencil matrices: the DIA path is pure streaming
-    # (no gathers at all) and beats every other format outright.
+    # (no gathers at all).
     try:
         return dia_pack(csr)
     except DiaInfeasible:
         pass
     # Banded-SPARSE matrices (road class: few nnz/row, all near the
-    # diagonal, no dense diagonals): BELL keeps natural row order, runs
-    # one gather-MAC kernel with no route/reduce/y-route, and packs in
-    # a few vectorized passes.
+    # diagonal, no dense diagonals): BELL keeps natural row order and
+    # packs in a few vectorized passes.
     try:
         return bell_pack(csr)
     except BellInfeasible:
         pass
-    try:
-        sw = sell_pack_window(csr)
-    except WindowInfeasible:
-        try:
-            return sell_pack_routed(csr)
-        except ValueError as e:
-            # Above the routed path's one-chip cap (T > 98304, ~100M
-            # stored nnz): degrade to the plain SELL planes (XLA
-            # segment-sum path — slower, but any size) instead of
-            # raising, and say how to get the fast path back.
-            import warnings
-
-            warnings.warn(
-                f"pack_auto: routed path infeasible ({e}); falling "
-                "back to SELL-XLA.  For kernel-rate SpMV, row-shard "
-                "this matrix across devices "
-                "(cvr_tpu.parallel.dist_routed).",
-                stacklevel=2,
-            )
-            return sell_pack(csr, C=1024)
-    if csr.nnz and sw.padded_nnz / csr.nnz > max_window_fill:
-        try:
-            return sell_pack_routed(csr)
-        except ValueError:  # too large for one chip's routed path
-            return sw
-    return sw
+    return sell_pack(csr)

@@ -1,16 +1,20 @@
-"""BELL: banded-ELL planes in natural row order + routed spill.
+"""BELL: banded-ELL planes in natural row order + SELL spill.
 
 The format for the road domain (reference paper Table 2/3: road_usa,
 ~2.5 nnz/row, nnz concentrated near the diagonal; CVR wins it 1.37x
 over its second best, spmv.cpp:1197-1233 is the loop to beat).  Unlike
-the routed format there is NO row sort, NO route and NO y-route: rows
-keep their natural order (which IS the x locality), the k densest
-per-row entries fill k (offset, value) planes consumed by one fused
-Pallas kernel (ops/pallas_bell.py), and the leftovers — rows deeper
-than k or entries farther than the reach cap — spill to a small routed
-residual.  Pack cost is a few vectorized numpy passes: the conversion
-time CVR treats as a first-class metric all but vanishes where the
-matrix is banded-sparse.
+SELL there is NO row sort: rows keep their natural order (which IS the
+x locality), the k densest per-row entries fill k (offset, value)
+planes consumed by one gather-MAC (ops/spmv_bell.py), and the leftovers
+— rows deeper than k or entries farther than the reach cap — spill to a
+small SELL residual.  Pack cost is a few vectorized numpy passes: the
+conversion time CVR treats as a first-class metric all but vanishes
+where the matrix is banded-sparse.
+
+Plane layout: rows are grouped in tiles of 1024 (8 sublanes of 128);
+``li`` holds the column relative to the tile's window base,
+``col - 1024 * (row >> 10) + 128 * cr`` with ``cr = ceil(reach / 128)``,
+so an int16 covers the whole window.
 """
 
 from __future__ import annotations
@@ -21,12 +25,10 @@ import time
 import numpy as np
 
 from cvr_tpu.formats.csr import CSRMatrix
-from cvr_tpu.ops.pallas_bell import (
-    REACH_CAP,
-    bell_tbb,
-    bell_tbb0,
-    ncand_of,
-)
+from cvr_tpu.formats.sell import SellMatrix, sell_pack
+
+# li is int16 in [0, 2048): the window spans 16 sublanes of 128 columns.
+REACH_CAP = 448
 
 
 def _round_up(x: int, m: int) -> int:
@@ -43,7 +45,7 @@ class BellMatrix:
 
     li: np.ndarray  # (k, R_sub, 128) int16 window offsets
     vals: np.ndarray  # (k, R_sub, 128) f32
-    spill: object  # SellRouted | None — residual entries (row-compressed)
+    spill: SellMatrix | None  # residual entries (row-compressed)
     spill_map: np.ndarray | None  # natural rows of the compressed spill
     shape: tuple
     nnz: int
@@ -51,17 +53,18 @@ class BellMatrix:
     k: int
     d: int  # window phase: tile t's base sublane is 8t + d in xt coords
     pre: int  # zero sublanes prepended to x
-    ncand: int
-    TBb: int
     convert_time: float = 0.0
     convert_phases: dict | None = None
-    # raw (rows, cols, vals) spill triples when packed with
-    # pack_spill=False (the dist layer packs them itself)
-    spill_raw: tuple | None = None
 
     @property
     def R_sub(self) -> int:
         return self.li.shape[1]
+
+    @property
+    def padded_nnz(self) -> int:
+        """Stored plane slots plus the spill's padded slots."""
+        spill = self.spill.padded_nnz if self.spill is not None else 0
+        return self.k * self.R_sub * 128 + spill
 
 
 def bell_pack(
@@ -69,24 +72,12 @@ def bell_pack(
     k: int | None = None,
     max_spill: float = 0.02,
     max_k: int = 12,
-    reach_force: int | None = None,
-    R_sub_min: int = 0,
-    pack_spill: bool = True,
 ) -> BellMatrix:
-    """Pack a banded-sparse CSR into BELL planes + routed spill.
+    """Pack a banded-sparse CSR into BELL planes + SELL spill.
 
     Gate: at least (1 - max_spill) of the nnz must sit within
     REACH_CAP columns of the diagonal AND within the first k entries
     of their row, for some k <= max_k; otherwise BellInfeasible.
-
-    ``reach_force`` / ``R_sub_min`` pin the window geometry so
-    independently packed row shards share one kernel program
-    (cvr_tpu/parallel/dist_bell.py); ``pack_spill=False`` leaves the
-    spill as raw (rows, cols, vals) triples in ``spill_raw`` instead of
-    packing it (the dist layer packs shard spills under a forced routed
-    geometry).  Columns may be negative down to -128*ceil(reach/128)
-    (a row shard's band can reach left of its first row; the x table's
-    ``pre`` region covers it).
     """
     from cvr_tpu import _native
 
@@ -124,14 +115,8 @@ def bell_pack(
             f"spill {spilled / nnz:.1%} at k={min(k, max_k)} over the "
             f"{max_spill:.0%} gate"
         )
-    if reach_force is not None:
-        if reach_force < reach:
-            raise ValueError("reach_force below the measured reach")
-        reach = reach_force
     cr = -(-reach // 128)
-    R_sub0 = max(-(-max(nrows, 1) // 128), R_sub_min)
-    TBb = bell_tbb0(k)
-    R_sub = _round_up(R_sub0, TBb * 8)
+    R_sub = _round_up(max(-(-max(nrows, 1) // 128), 1), 8)
 
     if use_native:
         li, vals, sp_rows, sp_cols, sp_vals = _native.bell_fill_native(
@@ -159,21 +144,15 @@ def bell_pack(
         sp_vals = csr.vals[sp]
     pre = _round_up(cr, 8)
     d = pre - cr
-    ncand = ncand_of(reach)
     li = li.reshape(k, R_sub, 128)
     vals = vals.reshape(k, R_sub, 128)
 
     spill = None
     spill_map = None
-    spill_raw = None
-    if sp_rows.size and not pack_spill:
-        spill_raw = (sp_rows, sp_cols, sp_vals)
-    elif sp_rows.size:
-        from cvr_tpu.formats.sell_routed import sell_pack_routed
-
+    if sp_rows.size:
         # compress the spill to its occupied rows: the residual's pack
-        # and y-route scale with the spill, not with nrows (spmv adds
-        # the compressed y back through spill_map)
+        # and SpMV scale with the spill, not with nrows (spmv adds the
+        # compressed y back through spill_map)
         spill_map, sp_rows_c = np.unique(sp_rows, return_inverse=True)
         sp_rowptr = np.zeros(spill_map.size + 1, dtype=np.int64)
         np.cumsum(
@@ -187,14 +166,14 @@ def bell_pack(
             vals=sp_vals,
             shape=(int(spill_map.size), ncols),
         )
-        spill = sell_pack_routed(sp_csr)
+        spill = sell_pack(sp_csr)
     dt = time.perf_counter() - t0
     phases = {"bell": dt}
     if spill is not None:
         phases.update(
             {f"spill_{p}": v for p, v in (spill.convert_phases or {}).items()}
         )
-    bm = BellMatrix(
+    return BellMatrix(
         li=li,
         vals=vals,
         spill=spill,
@@ -205,36 +184,27 @@ def bell_pack(
         k=k,
         d=d,
         pre=pre,
-        ncand=ncand,
-        TBb=bell_tbb(k, R_sub),
         convert_time=dt,
         convert_phases=phases,
     )
-    bm.spill_raw = spill_raw
-    return bm
 
 
 def save_bell(bm: BellMatrix, path) -> None:
-    """Persist the BELL artifact (spill routed sub-artifact embedded as
-    bytes; same amortization workflow as save_routed)."""
+    """Persist the BELL artifact (the SELL spill embedded as bytes; same
+    amortization workflow as SellMatrix.save)."""
     import io
-
-    from cvr_tpu.formats.sell_routed import save_routed
 
     spill_buf = b""
     if bm.spill is not None:
         bio = io.BytesIO()
-        save_routed(bm.spill, bio)
+        bm.spill.save(bio)
         spill_buf = bio.getvalue()
     np.savez_compressed(
         path,
         bell_li=bm.li,
         bell_vals=bm.vals,
         bell_meta=np.asarray(
-            [
-                bm.shape[0], bm.shape[1], bm.nnz, bm.reach, bm.k,
-                bm.d, bm.pre, bm.ncand, bm.TBb,
-            ],
+            [bm.shape[0], bm.shape[1], bm.nnz, bm.reach, bm.k, bm.d, bm.pre],
             dtype=np.int64,
         ),
         bell_spill=np.frombuffer(spill_buf, dtype=np.uint8),
@@ -249,14 +219,12 @@ def save_bell(bm: BellMatrix, path) -> None:
 def load_bell(path) -> BellMatrix:
     import io
 
-    from cvr_tpu.formats.sell_routed import load_routed
-
     z = np.load(path)
     m = z["bell_meta"]
     spill = None
     raw = z["bell_spill"]
     if raw.size:
-        spill = load_routed(io.BytesIO(raw.tobytes()))
+        spill = SellMatrix.load(io.BytesIO(raw.tobytes()))
     smap = z["bell_spill_map"]
     return BellMatrix(
         li=z["bell_li"],
@@ -269,6 +237,4 @@ def load_bell(path) -> BellMatrix:
         k=int(m[4]),
         d=int(m[5]),
         pre=int(m[6]),
-        ncand=int(m[7]),
-        TBb=int(m[8]),
     )

@@ -6,11 +6,10 @@ CVR paper Table 2) is graph neural networks, where every layer is one
 SpMM against a dense feature block — the BASELINE "8-64 RHS" range is
 precisely a GCN hidden width.  These layers are thin, jit-traceable
 compositions over a caller-supplied ``spmm`` closure, so any packed
-format (BSR bricks, lane, PMM, vmapped routed — cvr_tpu/ops/spmm_*)
-slots in unchanged, and the dense feature matmuls land on the MXU in
-bf16-friendly shapes.
+format (BSR bricks, SELL, DIA, BELL — cvr_tpu.ops.spmv.spmm) slots in
+unchanged.
 
-Design notes (TPU-first):
+Design notes:
   * feature transforms are ordered ``A @ (X @ W)`` when W shrinks the
     feature width and ``(A @ X) @ W`` otherwise — the SpMM is the
     expensive factor, so it always runs at the narrower K;
@@ -66,8 +65,8 @@ def gcn_layer(spmm, X: jax.Array, W: jax.Array, b=None, activation=jax.nn.relu):
     """
     fin, fout = W.shape
     # the feature matmuls are tiny next to the SpMM; run them at
-    # HIGHEST so TPU DEFAULT's bf16 operand truncation (measured 3.9e-3
-    # — experiments/probe_pmm_precision.py) doesn't cap layer accuracy
+    # HIGHEST (full f32) so a DEFAULT-precision matmul's reduced-precision
+    # operands (TF32 on the GPU) don't cap layer accuracy
     mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
     if fout <= fin:
         H = spmm(mm(jnp.asarray(X, jnp.float32), W))

@@ -64,23 +64,6 @@ def pagerank(
     return p, iters, delta
 
 
-def pagerank_routed(sd, *, transposed_sd=None, **kwargs):
-    """PageRank on a SellRoutedDevice adjacency (the fast path).
-
-    Pass ``transposed_sd`` packed from the transposed adjacency (swap
-    rows/cols in COO before packing) — PageRank iterates A^T @ p.
-    """
-    from cvr_tpu.ops.spmv_routed import spmv_routed
-
-    A = transposed_sd if transposed_sd is not None else sd
-    nrows = A.shape[0]
-    return jax.jit(
-        functools.partial(
-            pagerank, lambda p: spmv_routed(A, p), nrows, **kwargs
-        )
-    )()
-
-
 def pagerank_sell(sd, *, transposed_sd=None, **kwargs):
     """Convenience wrapper: PageRank on a SellDevice adjacency matrix.
 

@@ -94,7 +94,7 @@ def bicgstab(
     Returns (x, iterations, relative residual norm).  On an exact
     breakdown (rho = 0, r_hat orthogonal to v, or omega = 0 — singular
     or deficient systems) the iteration freezes at the last finite
-    iterate instead of spinning NaNs to max_iters (ADVICE r2).
+    iterate instead of spinning NaNs to max_iters.
     """
     x = jnp.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
@@ -206,7 +206,7 @@ def subspace_iteration(
 ):
     """Top-k eigenpairs of symmetric A by block power (subspace)
     iteration — the multi-RHS workload that drives the SpMM paths
-    (BASELINE.json config 4: "SpMM to engage the MXU").
+    (BASELINE.json config 4).
 
     matmat: V [n, k] -> A @ V.  Returns (eigenvalues [k], V [n, k]).
     """
@@ -257,8 +257,8 @@ def lanczos(
         a = jnp.vdot(v, w)
         w = w - a * v
         # full reorthogonalization against the basis built so far
-        # (HIGHEST: TPU DEFAULT matmuls truncate operands to bf16,
-        # which would leave ~1e-3 residual non-orthogonality)
+        # (HIGHEST: a DEFAULT-precision matmul may round operands to
+        # TF32 on the GPU, leaving ~1e-3 residual non-orthogonality)
         hp = jax.lax.Precision.HIGHEST
         mask = (jnp.arange(k) <= j).astype(jnp.float32)
         coef = jnp.matmul(V.T, w, precision=hp) * mask

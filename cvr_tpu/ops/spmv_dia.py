@@ -2,7 +2,7 @@
 
 Each diagonal contributes ``band_k * x[r + off_k]`` — a static slice of a
 zero-padded x, so the whole SpMV is nd fused elementwise FMAs with zero
-gathers.  XLA fuses the slices into one pass; the kernel is
+gathers.  XLA fuses the slices into one streaming loop; it is
 HBM-bandwidth bound by the band planes (4 B/nnz), the roofline the other
 formats can only approach.  (Reference best case: CVR's pure-streaming
 phase 3 on regular rows, spmv.cpp:1351-1437.)
@@ -42,22 +42,7 @@ def to_device_dia(dm: DiaMatrix, device=None) -> DiaDevice:
 
 
 def spmv_dia(sd: DiaDevice, x: jax.Array) -> jax.Array:
-    """y = A @ x via the fused Pallas roll kernel when the padded x fits
-    VMEM (measured 62.8 vs 40.8 GFLOPS for the XLA path on banded-2M —
-    the XLA path relayouts x once per non-128-multiple diagonal), else
-    the XLA shifted-FMA path."""
-    nrows, ncols = sd.shape
-    reach = max(sd.offsets) - min(min(sd.offsets), 0)
-    if (nrows + reach + 256 * 128) * 4 <= 24 * 1024 * 1024:
-        from cvr_tpu.ops.pallas_dia import spmv_dia_pallas
-
-        return spmv_dia_pallas(sd, x)
-    return spmv_dia_xla(sd, x)
-
-
-def spmv_dia_xla(sd: DiaDevice, x: jax.Array) -> jax.Array:
-    """XLA shifted-FMA formulation (any size; one x relayout per
-    unaligned diagonal)."""
+    """y = A @ x as nd shifted FMAs over a zero-padded x (one fusion)."""
     nrows, ncols = sd.shape
     lo = min(sd.offsets + (0,))
     hi = max(sd.offsets + (0,))
@@ -75,24 +60,7 @@ def spmv_dia_xla(sd: DiaDevice, x: jax.Array) -> jax.Array:
 
 
 def spmm_dia(sd: DiaDevice, X: jax.Array) -> jax.Array:
-    """Y = A @ X for dense X [ncols, K].
-
-    Dispatches to the fused halo Pallas kernel (X streams through HBM
-    once; measured 582 useful GFLOPS at K=128 on banded-1M — above the
-    fused BSR MXU kernel's 494, with exact f32 and no densification);
-    the XLA formulation (one X pass per diagonal, 305 GFLOPS) covers
-    reaches beyond the halo block."""
-    from cvr_tpu.ops.pallas_dia import RS, spmm_dia_pallas
-
-    lo = min(sd.offsets + (0,))
-    pad0 = -(-max(-lo, 0) // 8) * 8
-    if pad0 + max(sd.offsets) < RS and len(sd.offsets) <= 128:
-        return spmm_dia_pallas(sd, X)
-    return spmm_dia_xla(sd, X)
-
-
-def spmm_dia_xla(sd: DiaDevice, X: jax.Array) -> jax.Array:
-    """XLA shifted-FMA SpMM (any reach; re-reads X once per diagonal)."""
+    """Y = A @ X for dense X [ncols, K]: shifted FMAs over padded X rows."""
     nrows, ncols = sd.shape
     lo = min(sd.offsets + (0,))
     hi = max(sd.offsets + (0,))
@@ -107,13 +75,3 @@ def spmm_dia_xla(sd: DiaDevice, X: jax.Array) -> jax.Array:
             Xp, base + off, nrows, axis=0
         )
     return Y
-
-
-@functools.lru_cache(maxsize=None)
-def _jitted_spmv_dia():
-    return jax.jit(spmv_dia)
-
-
-@functools.lru_cache(maxsize=None)
-def _jitted_spmm_dia():
-    return jax.jit(spmm_dia)

@@ -5,11 +5,6 @@ from cvr_tpu.parallel.dist import (
     dist_spmv,
     make_mesh,
 )
-from cvr_tpu.parallel.dist_routed import (
-    DistRoutedMatrix,
-    dist_routed_pack,
-    dist_spmv_routed,
-)
 
 __all__ = [
     "partition_rows_by_nnz",
@@ -17,7 +12,4 @@ __all__ = [
     "dist_sell_pack",
     "dist_spmv",
     "make_mesh",
-    "DistRoutedMatrix",
-    "dist_routed_pack",
-    "dist_spmv_routed",
 ]

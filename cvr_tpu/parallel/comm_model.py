@@ -1,49 +1,41 @@
 """Comm-volume accounting and weak-scaling projection for dist SpMV.
 
-SURVEY §5 mandates comm-compute overlap in the distributed layer and
-BASELINE.md sets a >=70% weak-scaling efficiency target.  Multi-chip
-hardware is not reachable from this host, so this module is the
-hardware-free half of that requirement: an explicit per-iteration byte
-account (what each shard streams from HBM vs what it receives over ICI)
+BASELINE.md sets a >=70% weak-scaling efficiency target for the
+row-sharded SpMV (parallel/dist.py).  This module is the hardware-free
+half of that requirement: an explicit per-iteration byte account (what
+each shard streams from HBM vs what it receives from the other cards)
 and a projection of weak-scaling efficiency for the blocking all-gather
-path vs the ppermute-ring overlap path (parallel/dist_routed.py).
+path and for an ideally overlapped one.
 
 Model (1D row sharding, x_sharded=True, weak scaling = every device
 holds one copy of the benchmark matrix, so the global problem is D x
 larger and the gathered x is D x longer):
 
-  t_comp          constant per device (the measured single-chip SpMV).
+  t_comp          constant per device (the measured one-card SpMV).
   gather bytes    (D-1) * ncols * 4 received per device per iteration
-                  (ring all-gather of the D*ncols global x).
-  t_comm(D)       gather_bytes / bw_ici, bw_ici = 2 bidirectional ICI
-                  links on the ring axis (v5e: 2 x 45 GB/s).
-  no overlap      T(D) = t_comp + t_comm(D)
-  overlap         T(D) = max(f_exp * t_comp, t_comm(D))
-                         + (1 - f_exp) * t_comp
-                  where f_exp is the expand pass's share of the
-                  single-chip pipeline (measured by
-                  scripts/profile_passes.py; the ring schedule runs
-                  exactly the expand blocks whose windows arrived).
+                  (all-gather of the D*ncols global x).
+  t_comm(D)       gather_bytes / NVLINK_BW: the cards of one host are
+                  joined all to all, so each receives from the others
+                  at its full per-direction NVLink rate.
+  blocking        T(D) = t_comp + t_comm(D)
+  overlapped      T(D) = max(t_comp, t_comm(D)) — the bound a gather
+                  hidden behind compute could reach.
   E(D)            t_comp / T(D); target >= 0.70 (BASELINE.md).
 
-The account makes the scaling limit explicit instead of hiding it: with
-1D row sharding the received bytes grow linearly in D while per-device
-compute stays flat, so E(D) has a hard knee at
-t_comm(D) ~ t_comp.  Past that knee the fix is a 2D (row x col) mesh —
-shard x over a second axis so each device gathers only its column
-block, bytes/device ~ ncols * 4 * (sqrt(D)-1)/sqrt(D) ~ constant — the
-standard scaling-book recipe; the routed pack already windows columns
-(segw), which is the natural column-block boundary.
+With 1D row sharding the received bytes grow linearly in D while
+per-device compute stays flat, so E(D) has a hard knee at
+t_comm(D) ~ t_comp.  Past it the fix is a 2D (row x col) mesh that
+gathers only a column block of x per device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-# Per-direction ICI link bandwidth, bytes/s.  TPU v5e: ~45 GB/s per
-# link per direction; a 1D ring uses both directions of one axis.
-ICI_LINK_BW = 45e9
-RING_LINKS = 2
+# Per-card NVLink bandwidth in one direction, bytes/s.  H100 SXM: 900
+# GB/s total NVLink bandwidth, 450 GB/s each way, all to all among the
+# cards of one host (NVIDIA H100 data sheet).
+NVLINK_BW = 450e9
 
 
 @dataclass
@@ -51,121 +43,46 @@ class CommRow:
     name: str
     D: int
     stream_bytes: int  # HBM bytes per device per iteration
-    gather_bytes: int  # ICI bytes received per device per iteration
+    gather_bytes: int  # bytes received per device per iteration
     t_comp_s: float
     t_comm_s: float
     eff_blocking: float
     eff_overlap: float
 
 
-def routed_stream_bytes(padded_nnz: int, n_slots: int | None = None) -> int:
-    """HBM bytes one device streams per routed SpMV iteration.
-
-    Mirrors scripts/profile_passes.py's per-pass traffic model: the
-    expand + middle + chunk-select passes each sweep the T*1024 stream
-    (6 + 10 + 10 bytes/element), the reduce + y-route sweep the S_pad
-    plane slots at 12 bytes/slot.  When the caller has no S_pad,
-    slots ~ padded_nnz is the right order (plane slots are the stream
-    minus x-table and route padding).
-    """
-    slots = padded_nnz if n_slots is None else n_slots
-    return padded_nnz * (6 + 10 + 10) + slots * 12
+def sell_stream_bytes(padded_nnz: int) -> int:
+    """HBM bytes one device streams per SELL SpMV iteration: a 4-byte
+    value and a 4-byte column id per stored slot (x and y traffic,
+    O(nrows), is left out)."""
+    return padded_nnz * 8
 
 
 def weak_scaling(
-    t_comp_s: float,
-    ncols: int,
-    D: int,
-    f_exp: float = 0.35,
-    bw_ici: float = RING_LINKS * ICI_LINK_BW,
+    t_comp_s: float, ncols: int, D: int, bw: float = NVLINK_BW
 ) -> tuple[float, float, float]:
     """(t_comm, E_blocking, E_overlap) for D devices, weak scaling."""
-    gather = (D - 1) * ncols * 4
-    t_comm = gather / bw_ici
+    t_comm = (D - 1) * ncols * 4 / bw
     e_block = t_comp_s / (t_comp_s + t_comm)
-    t_ov = max(f_exp * t_comp_s, t_comm) + (1.0 - f_exp) * t_comp_s
-    e_ov = t_comp_s / t_ov
+    e_ov = t_comp_s / max(t_comp_s, t_comm)
     return t_comm, e_block, e_ov
-
-
-def weak_scaling_2d(
-    t_comp_s: float,
-    ncols: int,
-    nrows: int,
-    R: int,
-    C: int,
-    f_exp: float = 0.35,
-    bw_ici: float = RING_LINKS * ICI_LINK_BW,
-) -> tuple[float, float, float]:
-    """(t_comm, E_blocking, E_overlap) on an (R x C) mesh, weak scaling.
-
-    2D path (parallel/dist2d.py): per iteration a device all-gathers
-    its column block of x over the ROW axis — (R-1)/R * ncols * 4 bytes
-    received (weak scaling: the global x is C * ncols long, the block
-    is ncols) — and reduce-scatters its row-block partial y over the
-    COL axis — (C-1)/C * nrows * 4 bytes sent/received.  Unlike the 1D
-    ring, per-device volume is ~constant in D for R ~ C ~ sqrt(D).
-    The overlap column hides only the x gather (the y reduce-scatter
-    trails the compute; a pipelined variant could hide it too).
-    """
-    gather = (R - 1) / R * ncols * 4
-    scatter = (C - 1) / C * nrows * 4
-    t_comm = (gather + scatter) / bw_ici
-    e_block = t_comp_s / (t_comp_s + t_comm)
-    t_ov = (
-        max(f_exp * t_comp_s, gather / bw_ici)
-        + (1.0 - f_exp) * t_comp_s
-        + scatter / bw_ici
-    )
-    e_ov = t_comp_s / t_ov
-    return t_comm, e_block, e_ov
-
-
-def best_mesh_2d(
-    t_comp_s: float,
-    ncols: int,
-    nrows: int,
-    D: int,
-    f_exp: float = 0.35,
-) -> tuple[int, int, float, float]:
-    """(R, C, E_blocking, E_overlap): the best R*C == D factorization."""
-    best = None
-    R = 1
-    while R <= D:
-        if D % R == 0:
-            C = D // R
-            _, e_b, e_o = weak_scaling_2d(
-                t_comp_s, ncols, nrows, R, C, f_exp
-            )
-            if best is None or e_b > best[2]:
-                best = (R, C, e_b, e_o)
-        R += 1
-    return best
 
 
 def knee_devices(
-    t_comp_s: float,
-    ncols: int,
-    f_exp: float = 0.35,
-    target: float = 0.70,
-    bw_ici: float = RING_LINKS * ICI_LINK_BW,
+    t_comp_s: float, ncols: int, target: float = 0.70, bw: float = NVLINK_BW
 ) -> tuple[int, int]:
     """Largest D keeping E >= target, (blocking, overlap) paths."""
 
     def largest(eff_idx: int) -> int:
         d, last = 2, 1
         while d <= 1 << 20:
-            e = weak_scaling(t_comp_s, ncols, d, f_exp, bw_ici)[eff_idx]
-            if e < target:
+            if weak_scaling(t_comp_s, ncols, d, bw)[eff_idx] < target:
                 break
             last = d
             d *= 2
-        # refine between last and d
         lo, hi = last, min(d, 1 << 20)
         while lo + 1 < hi:
             mid = (lo + hi) // 2
-            e = weak_scaling(t_comp_s, ncols, mid, f_exp, bw_ici)[eff_idx]
-            if e >= target:
+            if weak_scaling(t_comp_s, ncols, mid, bw)[eff_idx] >= target:
                 lo = mid
             else:
                 hi = mid
@@ -174,11 +91,11 @@ def knee_devices(
     return largest(1), largest(2)
 
 
-def comm_table(rows, D: int = 8, f_exp: float = 0.35) -> list[CommRow]:
-    """Build CommRows from bench-result dicts (results*.jsonl rows).
+def comm_table(rows, D: int = 4) -> list[CommRow]:
+    """Build CommRows from bench-result dicts (BenchResult JSON lines).
 
-    Each row needs: name, ncols, nnz, padded_nnz, spmv_s.  Rows without
-    ncols (old artifacts) are skipped.
+    Each row needs: name, ncols, padded_nnz, spmv_s.  Rows without ncols
+    are skipped.
     """
     out = []
     for r in rows:
@@ -186,12 +103,12 @@ def comm_table(rows, D: int = 8, f_exp: float = 0.35) -> list[CommRow]:
         if not ncols:
             continue
         t_comp = float(r["spmv_s"])
-        t_comm, e_b, e_o = weak_scaling(t_comp, ncols, D, f_exp)
+        t_comm, e_b, e_o = weak_scaling(t_comp, ncols, D)
         out.append(
             CommRow(
                 name=r["name"],
                 D=D,
-                stream_bytes=routed_stream_bytes(int(r["padded_nnz"])),
+                stream_bytes=sell_stream_bytes(int(r["padded_nnz"])),
                 gather_bytes=(D - 1) * ncols * 4,
                 t_comp_s=t_comp,
                 t_comm_s=t_comm,

@@ -2,24 +2,24 @@
 
 The reference has no distributed layer at all (SURVEY.md §2: its only
 parallelism is OpenMP fork-join over one address space, spmv.cpp:577).
-This module is the mandated TPU-native extension (BASELINE.json north
-star): the matrix is row-partitioned across devices with nnz balance
+This module is the multi-device extension (BASELINE.json north star): the
+matrix is row-partitioned across devices with nnz balance
 (partition_rows_by_nnz), each shard is SELL-packed independently, and the
 dense vector x is either replicated or row-sharded and all-gathered over
-the mesh's ICI inside shard_map just before the per-shard SpMV.
+the interconnect (NVLink between the cards of one host) inside shard_map
+just before the per-shard SpMV.
 
 Design notes:
   * Shards are cut at row boundaries, so y needs no cross-device
     reduction — each device owns a disjoint slice of y.  (The alternative,
-    column partitioning + psum, loses: it moves y over ICI every
-    iteration, while row partitioning moves x once and x is shared by all
-    iterations of iterative solvers.)
+    column partitioning + psum, moves y every iteration, while row
+    partitioning moves x once and x is shared by all iterations of
+    iterative solvers.)
   * shard_map requires identical local shapes, so every shard's planes are
     padded to the maximum shard extent before stacking on the leading
     device axis.  The packer's nnz balance keeps that padding small.
   * Multi-host: the same code runs under jax.distributed.initialize();
-    the mesh then spans hosts and the all-gather rides ICI/DCN.  See
-    ``initialize_distributed``.
+    the mesh then spans hosts.  See ``initialize_distributed``.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ AXIS = "shards"
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """A 1-D device mesh over the row-shard axis."""
+    """A 1-D device mesh over the row-shard axis (every card of a host
+    reaches every other at the same NVLink rate, so no other shape)."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:
@@ -55,8 +56,8 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 def initialize_distributed(**kwargs) -> None:
     """Multi-host entry: thin wrapper over jax.distributed.initialize.
 
-    On a real v5e/v5p slice each host calls this before building the mesh;
-    single-host runs skip it.
+    Each process calls this (with coordinator_address, num_processes and
+    process_id) before building the mesh; single-process runs skip it.
     """
     jax.distributed.initialize(**kwargs)
 
@@ -209,7 +210,7 @@ def dist_spmv(
 
     x_sharded=False: x is replicated; no communication at all.
     x_sharded=True: x enters row-sharded (P(AXIS)) and is all-gathered
-    over ICI inside shard_map — the scalable pattern for matrices whose x
+    inside shard_map — the scalable pattern for matrices whose x
     does not fit per-chip or is produced sharded by an upstream op
     (BASELINE.json config #5).
     """

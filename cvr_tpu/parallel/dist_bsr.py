@@ -1,9 +1,10 @@
 """Distributed BSR-128 SpMM over a jax.sharding.Mesh.
 
 Row-block-partitioned dense-brick SpMM: each device owns a contiguous
-range of 128-row blocks (balanced by brick count — the MXU work unit),
-X is replicated or all-gathered over ICI inside shard_map, and each
-shard runs the single-chip brick pipeline (cvr_tpu/ops/spmm_bsr.py).
+range of 128-row blocks (balanced by brick count — the matmul work unit),
+X is replicated or all-gathered inside shard_map, and each
+shard runs the single-device brick SpMM (cvr_tpu/ops/spmm_bsr.py: the
+row blocks' bricks as ELL slots, one batched matmul).
 Cuts are at row-block boundaries so y needs no cross-device reduction
 — the same no-atomics-by-construction design as the distributed SpMV
 (cvr_tpu/parallel/dist.py; reference analogue: each OpenMP thread owns
@@ -23,6 +24,7 @@ from jax import shard_map
 
 from cvr_tpu.formats.bsr import B, BsrMatrix, bsr_pack
 from cvr_tpu.formats.csr import CSRMatrix
+from cvr_tpu.ops.spmm_bsr import brick_ell
 from cvr_tpu.parallel.dist import AXIS, make_mesh  # noqa: F401
 
 
@@ -34,9 +36,8 @@ def _round_up(x: int, m: int) -> int:
 class DistBsrMatrix:
     """Brick planes stacked on a leading device axis (sharded)."""
 
-    vals: jax.Array  # [D, nb_max, B, B] f32
-    brick_row: jax.Array  # [D, nb_max] int32 LOCAL row block, sorted
-    brick_col: jax.Array  # [D, nb_max] int32
+    vals: jax.Array  # [D, nrb_local_max, maxb, B, B] f32 ELL bricks
+    cols: jax.Array  # [D, nrb_local_max, maxb] int32 column blocks
     rb_bounds: np.ndarray  # [D + 1] global row-block bounds
     unpad_index: jax.Array  # [nrows] -> position in stacked local Y
     shape: tuple[int, int]
@@ -54,7 +55,7 @@ def dist_bsr_pack(
     csr: CSRMatrix, mesh: Mesh, **pack_kw
 ) -> DistBsrMatrix:
     """Pack once, then split the brick stream at row-block boundaries so
-    every shard carries ~equal brick counts (brick = MXU work unit)."""
+    every shard carries ~equal brick counts (brick = matmul work unit)."""
     bm: BsrMatrix = bsr_pack(csr, **pack_kw)
     D = mesh.devices.size
     nb = bm.nbricks
@@ -72,22 +73,20 @@ def dist_bsr_pack(
     )
     idx = np.searchsorted(bm.brick_row, rb_bounds, side="left")
 
-    nb_max = max(1, int(np.max(idx[1:] - idx[:-1])))
     nrb_local = rb_bounds[1:] - rb_bounds[:-1]
     nrb_local_max = max(1, int(nrb_local.max()))
+    maxb = max(1, int(np.bincount(bm.brick_row, minlength=nrb).max()) if nb else 1)
 
-    vals = np.zeros((D, nb_max, B, B), dtype=np.float32)
-    brow = np.zeros((D, nb_max), dtype=np.int32)
-    bcol = np.zeros((D, nb_max), dtype=np.int32)
+    vals = np.zeros((D, nrb_local_max, maxb, B, B), dtype=np.float32)
+    cols = np.zeros((D, nrb_local_max, maxb), dtype=np.int32)
     for d in range(D):
         lo, hi = int(idx[d]), int(idx[d + 1])
-        k = hi - lo
-        vals[d, :k] = bm.vals[lo:hi]
-        brow[d, :k] = bm.brick_row[lo:hi] - rb_bounds[d]
-        # padding bricks: zero values into the shard's last row block
-        # (keeps the segment ids sorted; contributes nothing).
-        brow[d, k:] = max(int(nrb_local[d]) - 1, 0)
-        bcol[d, :k] = bm.brick_col[lo:hi]
+        v, c = brick_ell(
+            bm.brick_row[lo:hi] - rb_bounds[d], bm.brick_col[lo:hi],
+            bm.vals[lo:hi], nrb_local_max,
+        )
+        vals[d, :, : v.shape[1]] = v
+        cols[d, :, : c.shape[1]] = c
 
     nrows = csr.shape[0]
     row_ids = np.arange(nrows, dtype=np.int64)
@@ -109,8 +108,7 @@ def dist_bsr_pack(
     sharding = NamedSharding(mesh, P(AXIS))
     return DistBsrMatrix(
         vals=jax.device_put(vals, sharding),
-        brick_row=jax.device_put(brow, sharding),
-        brick_col=jax.device_put(bcol, sharding),
+        cols=jax.device_put(cols, sharding),
         rb_bounds=rb_bounds,
         unpad_index=jax.device_put(
             unpad, NamedSharding(mesh, P(None))
@@ -130,7 +128,7 @@ def dist_spmm_bsr(
     precision=jax.lax.Precision.HIGHEST,
 ) -> jax.Array:
     """Y = A @ X across the mesh (X [ncols, K] replicated, or row-sharded
-    and all-gathered over ICI inside shard_map)."""
+    and all-gathered inside shard_map)."""
     nrows, ncols = dm.shape
     K = X.shape[1]
     nrb_local = dm.nrb_local_max
@@ -145,35 +143,29 @@ def dist_spmm_bsr(
     Xp = jnp.pad(X.astype(jnp.float32), ((0, xrows - ncols), (0, 0)))
     x_spec = P(AXIS) if x_sharded else P(None)
 
-    def fn(vals, brow, bcol, xs):
+    def fn(vals, cols, xs):
         x_full = (
             jax.lax.all_gather(xs, AXIS, tiled=True)[: ncb * B]
             if x_sharded
             else xs
         )
-        gx = x_full.reshape(ncb, B, K)[bcol[0]]
-        prod = jax.lax.dot_general(
+        gx = x_full.reshape(ncb, B, K)[cols[0]]
+        Y = jax.lax.dot_general(
             vals[0],
             gx,
-            (((2,), (1,)), ((0,), (0,))),
+            (((1, 3), (1, 2)), ((0,), (0,))),
             precision=precision,
             preferred_element_type=jnp.float32,
-        )
-        Y = jax.ops.segment_sum(
-            prod,
-            brow[0],
-            num_segments=nrb_local,
-            indices_are_sorted=True,
         )
         return Y.reshape(nrb_local * B, K)[None]
 
     mapped = shard_map(
         fn,
         mesh=dm.mesh,
-        in_specs=(P(AXIS), P(AXIS), P(AXIS), x_spec),
+        in_specs=(P(AXIS), P(AXIS), x_spec),
         out_specs=P(AXIS),
     )
-    Y_stacked = mapped(dm.vals, dm.brick_row, dm.brick_col, Xp)
+    Y_stacked = mapped(dm.vals, dm.cols, Xp)
     return jnp.take(
         Y_stacked.reshape(-1, K), dm.unpad_index, axis=0
     )

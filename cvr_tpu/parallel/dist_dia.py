@@ -68,7 +68,7 @@ def dist_spmv_dia(
     dm: DistDiaMatrix, x: jax.Array, x_sharded: bool = False
 ) -> jax.Array:
     """y = A @ x across the mesh (x replicated, or row-sharded and
-    all-gathered over ICI inside shard_map)."""
+    all-gathered inside shard_map)."""
     nrows, ncols = dm.shape
     D = dm.n_shards
     lo = min(dm.offsets + (0,))

@@ -1,12 +1,13 @@
-"""Print the comm-volume / weak-scaling table from a results JSONL.
+"""Print the comm-volume / weak-scaling table from benchmark JSON lines.
 
-Usage: python scripts/comm_model.py [results_r3.jsonl] [--fexp 0.35]
+Usage: python scripts/comm_model.py RESULTS.jsonl
 
-Emits, per domain (latest row per name with shape info): HBM bytes
-streamed per shard per iteration, ICI bytes gathered per shard, the
-modeled comm time on a v5e ring, and the projected weak-scaling
-efficiency at D = 8 / 64 / 256 for the blocking all-gather path vs the
-ppermute-ring overlap path, plus the largest D that keeps E >= 70%
+RESULTS.jsonl holds BenchResult JSON lines (cvr_tpu.utils.report
+.append_jsonl, or bench.py's stderr).  Emits, per matrix (latest row per
+name with shape info): HBM bytes streamed per shard per iteration, bytes
+gathered per shard over NVLink, the modeled comm time, and the projected
+weak-scaling efficiency at D = 4 / 8 for the blocking all-gather path vs
+an ideally overlapped one, plus the largest D that keeps E >= 70%
 (BASELINE.md target).  See cvr_tpu/parallel/comm_model.py for the model.
 """
 
@@ -19,18 +20,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from cvr_tpu.parallel.comm_model import (
-    best_mesh_2d,
-    comm_table,
-    knee_devices,
-    weak_scaling,
-)
+from cvr_tpu.parallel.comm_model import comm_table, knee_devices, weak_scaling
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("jsonl", nargs="?", default="results_r3.jsonl")
-    ap.add_argument("--fexp", type=float, default=0.35)
+    ap.add_argument("jsonl")
     args = ap.parse_args()
 
     latest: dict[str, dict] = {}
@@ -45,33 +40,22 @@ def main() -> int:
         return 1
 
     hdr = (
-        f"{'domain':<18} {'HBM MB/it':>10} {'ICI MB/it@8':>12} "
-        f"{'t_comp ms':>10} {'t_comm ms@8':>12} "
-        f"{'E8 blk/ovl':>12} {'E64':>10} {'E256':>10} {'D@70% blk/ovl':>14} "
-        f"{'2D E8 (RxC)':>12} {'2D E64':>8}"
+        f"{'matrix':<26} {'HBM MB/it':>10} {'NVLink MB/it@4':>15} "
+        f"{'t_comp ms':>10} {'t_comm ms@4':>12} "
+        f"{'E4 blk/ovl':>12} {'E8 blk/ovl':>12} {'D@70% blk/ovl':>14}"
     )
     print(hdr)
     print("-" * len(hdr))
-    for cr in comm_table(rows, D=8, f_exp=args.fexp):
-        r = latest[cr.name]
-        e64 = weak_scaling(cr.t_comp_s, int(r["ncols"]), 64, args.fexp)
-        e256 = weak_scaling(cr.t_comp_s, int(r["ncols"]), 256, args.fexp)
-        kb, ko = knee_devices(cr.t_comp_s, int(r["ncols"]), args.fexp)
-        nrows = int(r.get("nrows") or r["ncols"])
-        R8, C8, e2b8, _ = best_mesh_2d(
-            cr.t_comp_s, int(r["ncols"]), nrows, 8, args.fexp
-        )
-        _, _, e2b64, _ = best_mesh_2d(
-            cr.t_comp_s, int(r["ncols"]), nrows, 64, args.fexp
-        )
+    for cr in comm_table(rows, D=4):
+        ncols = int(latest[cr.name]["ncols"])
+        e8 = weak_scaling(cr.t_comp_s, ncols, 8)
+        kb, ko = knee_devices(cr.t_comp_s, ncols)
         print(
-            f"{cr.name:<18} {cr.stream_bytes / 1e6:>10.1f} "
-            f"{cr.gather_bytes / 1e6:>12.2f} {cr.t_comp_s * 1e3:>10.3f} "
+            f"{cr.name:<26} {cr.stream_bytes / 1e6:>10.1f} "
+            f"{cr.gather_bytes / 1e6:>15.2f} {cr.t_comp_s * 1e3:>10.3f} "
             f"{cr.t_comm_s * 1e3:>12.4f} "
-            f"{cr.eff_blocking:>5.2f}/{cr.eff_overlap:<5.2f}"
-            f" {e64[1]:>4.2f}/{e64[2]:<4.2f} {e256[1]:>4.2f}/{e256[2]:<4.2f}"
-            f" {kb:>6d}/{ko:<6d}"
-            f" {e2b8:>5.2f} ({R8}x{C8}) {e2b64:>7.2f}"
+            f"{cr.eff_blocking:>5.2f}/{cr.eff_overlap:<5.2f} "
+            f"{e8[1]:>5.2f}/{e8[2]:<5.2f} {kb:>6d}/{ko:<6d}"
         )
     return 0
 

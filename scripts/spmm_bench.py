@@ -1,10 +1,9 @@
 #!/usr/bin/env python
-"""SpMM benchmark: the BSR-128 MXU path vs the vmapped gather path.
+"""SpMM benchmark: the BSR-128 dense-brick path vs the gather formats.
 
-BASELINE.json config 4 ("SpMM, 8-64 RHS, to engage the MXU").  The
-reference has no SpMM; the honest comparison is against running this
-framework's own SpMV kernel K times (what `spmm` does on SELL
-artifacts), and against the 2*nnz*K useful-FLOP MXU ceiling.
+BASELINE.json config 4 ("SpMM, 8-64 RHS").  The reference has no SpMM;
+the honest comparison is against this framework's own gather SpMM on
+the format pack_auto picks (SELL, DIA or BELL).
 
 Each run is verified against a float64 scipy golden on a random RHS.
 
@@ -65,129 +64,30 @@ def bench_one(name, coo, K, precision, iters=20):
     return row
 
 
-def bench_vmapped(name, coo, K, iters=5):
-    """The gather-path SpMM (K vmapped window/routed SpMV pipelines)."""
+def bench_auto(name, coo, K, iters=5):
+    """The gather-format SpMM on what pack_auto picks."""
     import jax.numpy as jnp
 
     from cvr_tpu.bench.harness import time_fn_iterated
     from cvr_tpu.formats import pack_auto
-    from cvr_tpu.ops.spmv import spmm
+    from cvr_tpu.ops.spmv import spmm_fn_of
 
     csr = coo.to_csr()
-    A = pack_auto(csr)
-    from cvr_tpu.formats.sell_window import SellWindow
-
-    if isinstance(A, SellWindow):
-        from cvr_tpu.ops.spmv_window import to_device_window
-
-        A = to_device_window(A)
-    else:
-        from cvr_tpu.ops.spmv_routed import to_device_routed
-
-        A = to_device_routed(A)
+    packed = pack_auto(csr)
+    A, fn = spmm_fn_of(packed)
     X = (
         np.random.default_rng(0)
         .standard_normal((csr.shape[1], K))
         .astype(np.float32)
     )
-    t = time_fn_iterated(
-        lambda a, V: spmm(a, V), A, jnp.asarray(X), iters, scale=0.05
-    )
+    t = time_fn_iterated(fn, A, jnp.asarray(X), iters, scale=0.05)
     row = {
         "name": name,
-        "impl": "vmapped-auto",
+        "impl": f"auto:{type(packed).__name__}",
         "K": K,
         "nnz": csr.nnz,
         "spmm_s": t,
         "useful_gflops": round(2 * csr.nnz * K / t / 1e9, 1),
-    }
-    print(json.dumps(row))
-    return row
-
-
-def bench_lane(name, coo, K, iters=10):
-    """The K-in-lane SpMM: plane-order row gather + slice reduce (no
-    route; cvr_tpu/ops/spmm_lane.py)."""
-    import jax.numpy as jnp
-
-    from cvr_tpu.bench.harness import time_fn_iterated
-    from cvr_tpu.ops.spmm_lane import (
-        spmm_lane,
-        spmm_lane_pack,
-        to_device_lane,
-    )
-
-    csr = coo.to_csr()
-    t0 = time.perf_counter()
-    lp = spmm_lane_pack(csr)
-    pack_s = time.perf_counter() - t0
-    sd = to_device_lane(lp)
-    rng = np.random.default_rng(0)
-    X = rng.standard_normal((csr.shape[1], K)).astype(np.float32)
-    m64 = csr.to_scipy().astype(np.float64)
-    Xv = X[:, : min(K, 8)]
-    Y = np.asarray(spmm_lane(sd, jnp.asarray(Xv)))
-    gold = m64 @ Xv.astype(np.float64)
-    scale = abs(m64) @ np.abs(Xv.astype(np.float64)) + 1e-30
-    maxrel = float((np.abs(Y - gold) / scale).max())
-    t = time_fn_iterated(
-        lambda a, V: spmm_lane(a, V), sd, jnp.asarray(X), iters, scale=0.05
-    )
-    row = {
-        "name": name,
-        "impl": "lane",
-        "K": K,
-        "nnz": csr.nnz,
-        "pack_s": round(pack_s, 3),
-        "spmm_s": t,
-        "useful_gflops": round(2 * csr.nnz * K / t / 1e9, 1),
-        "max_rel_err": maxrel,
-    }
-    print(json.dumps(row))
-    return row
-
-
-def bench_pmm(name, coo, K, iters=20):
-    """The MXU perm-matmul SpMM (cvr_tpu/ops/spmm_pmm.py): one-hot
-    gather + reduce matmuls, exact via the 3x-bf16 split.  Wins where
-    the sampled fan-in C is small (hub-concentrated column histograms,
-    e.g. fsm-class); the gate in cli.py dispatches it there."""
-    import jax.numpy as jnp
-
-    from cvr_tpu.bench.harness import time_fn_iterated
-    from cvr_tpu.ops.spmm_pmm import (
-        pmm_estimate,
-        pmm_plan,
-        spmm_pmm,
-        to_device_pmm,
-    )
-
-    npairs, nchunks = pmm_estimate(coo.rows, coo.cols, coo.shape)
-    t0 = time.perf_counter()
-    plan = pmm_plan(coo.rows, coo.cols, coo.vals, coo.shape)
-    pack_s = time.perf_counter() - t0
-    sd = to_device_pmm(plan)
-    rng = np.random.default_rng(0)
-    X = rng.standard_normal((coo.shape[1], K)).astype(np.float32)
-    m64 = coo.to_csr().to_scipy().astype(np.float64)
-    Xv = X[:, : min(K, 8)]
-    Y = np.asarray(spmm_pmm(sd, jnp.asarray(Xv)))
-    gold = m64 @ Xv.astype(np.float64)
-    scale = abs(m64) @ np.abs(Xv.astype(np.float64)) + 1e-30
-    maxrel = float((np.abs(Y - gold) / scale).max())
-    t = time_fn_iterated(
-        lambda a, V: spmm_pmm(a, V), sd, jnp.asarray(X), iters, scale=0.05
-    )
-    row = {
-        "name": name,
-        "impl": "pmm",
-        "K": K,
-        "nnz": int(coo.nnz),
-        "fanin_C": round(npairs / max(nchunks, 1), 2),
-        "pack_s": round(pack_s, 3),
-        "spmm_s": t,
-        "useful_gflops": round(2 * coo.nnz * K / t / 1e9, 1),
-        "max_rel_err": maxrel,
     }
     print(json.dumps(row))
     return row
@@ -198,8 +98,7 @@ def main():
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--pmm", action="store_true",
-                    help="only the PMM rows (fsm-class + web control)")
+    ap.add_argument("--out", default="results/spmm_bench.jsonl")
     args = ap.parse_args()
 
     from cvr_tpu.bench.synthetic import (
@@ -211,37 +110,27 @@ def main():
 
     P = jax.lax.Precision
     rows = []
-    if args.pmm:
-        from cvr_tpu.bench.synthetic import fsm_like
-
-        fsm = fsm_like()
-        for K in (32, 64, 128):
-            rows.append(bench_pmm("fsm-like", fsm, K))
-        del fsm
-    elif args.quick:
+    if args.quick:
         coo = banded_matrix(200_000, bandwidth=27, seed=0)
         rows.append(bench_one("banded-200K", coo, 128, P.HIGHEST))
     else:
         web = web_google_like()
-        # round-4 K grid: vmapped routed carries K < 96; the lane
-        # path's row-bound take crosses over at K ~ 96 (DESIGN.md r4)
-        for K in (32, 64):
-            rows.append(bench_vmapped("web-Google-like", web, K))
-        for K in (64, 96, 128):
-            rows.append(bench_lane("web-Google-like", web, K))
+        for K in (32, 64, 128):
+            rows.append(bench_auto("web-Google-like", web, K))
         del web
         banded = banded_matrix(1_000_000, bandwidth=27, seed=0)
         for K in (32, 128, 256):
             rows.append(bench_one("banded-1M", banded, K, P.HIGHEST))
         rows.append(bench_one("banded-1M", banded, 128, P.HIGH))
         for K in (32, 128):
-            rows.append(bench_vmapped("banded-1M", banded, K))
+            rows.append(bench_auto("banded-1M", banded, K))
         del banded
         rows.append(bench_one("fem-like", fem_like(), 128, P.HIGHEST))
         rows.append(
             bench_one("rgg-like", rgg_like(n=1 << 20), 128, P.HIGHEST)
         )
-    with open("results_spmm.jsonl", "a") as f:
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "a") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")
 

@@ -8,7 +8,7 @@ prints the greppable per-run contract plus a final summary table.
 Usage:
   python scripts/sweep.py                      # default synthetic suite
   python scripts/sweep.py --mtx a.mtx b.mtx    # explicit files
-  python scripts/sweep.py --iters 200 --impls sell-xla,csr
+  python scripts/sweep.py --iters 200 --impls sell,csr
 """
 
 from __future__ import annotations
@@ -72,8 +72,8 @@ def cgo18_suite():
         wiki_talk_like_b,
     )
 
-    # two structurally distinct stand-ins per paper domain (round 4:
-    # the domain score is the MIN over its matrices, scripts/make_parity)
+    # two structurally distinct stand-ins per paper domain: a domain's
+    # score is the MIN over its matrices, not one seed's luck
     return [
         ("web-Google-like",
          real_or("web-Google", "SNAP", web_google_like)),  # webGraph: 7.28
@@ -103,7 +103,7 @@ def cgo18_suite():
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mtx", nargs="*", default=None)
-    ap.add_argument("--impls", default="auto,sell-xla,csr")
+    ap.add_argument("--impls", default="auto,sell,csr")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--out", default="results.csv")
     ap.add_argument(

@@ -65,6 +65,34 @@ def test_bell_rectangular_wide():
     _check(coo, bm)
 
 
+def test_bell_spill_runs_through_sell():
+    """The residual is a row-compressed SellMatrix whose SpMV is added
+    back through spill_map."""
+    import jax.numpy as jnp
+
+    from cvr_tpu.formats.sell import SellMatrix
+    from cvr_tpu.ops.spmv import sell_spmv_xla, to_device
+
+    coo = _banded(6000, 5.0, 200, 17)
+    csr = coo.to_csr()
+    bm = bell_pack(csr, k=2, max_spill=1.0)
+    assert isinstance(bm.spill, SellMatrix)
+    assert bm.spill.shape == (bm.spill_map.size, csr.shape[1])
+    assert bm.spill.nnz + int((bm.vals != 0).sum()) == csr.nnz
+    x = np.random.default_rng(4).standard_normal(csr.shape[1]).astype(np.float32)
+    y_spill = np.zeros(csr.shape[0])
+    y_spill[bm.spill_map] = np.asarray(
+        sell_spmv_xla(to_device(bm.spill), jnp.asarray(x))
+    )
+    y = np.asarray(spmv_bell(to_device_bell(bm), x))
+    gold = spmv_golden_numpy(csr, x)
+    rs = spmv_row_scale(csr, x)
+    assert verify(y, gold, rtol=1e-6, row_scale=rs)[0]
+    # without the spill's share the planes alone would miss the contract
+    assert np.abs(y_spill).max() > 0
+    assert not verify(y - y_spill, gold, rtol=1e-6, row_scale=rs)[0]
+
+
 def test_bell_gate_rejects_powerlaw():
     from cvr_tpu.bench.synthetic import rmat_matrix
 

@@ -34,7 +34,7 @@ class TestHarness:
     def test_end_to_end_cpu(self):
         coo = rmat_matrix(scale=9, edge_factor=6, seed=2, cache=False)
         r = run_spmv_benchmark(
-            coo, name="t", impl="sell-xla", iters=3, chip="cpu"
+            coo, name="t", impl="sell", iters=3
         )
         assert r.verified is True
         assert r.gflops_2nnz > 0
@@ -43,17 +43,16 @@ class TestHarness:
 
     def test_pack_repeats_reports_first_run(self):
         # pack_repeats > 1: preproc_s is the min over repeats (the
-        # algorithm's time on a host with ±40% single-core timing
-        # variance); the first run is kept alongside so neither hides.
+        # algorithm's time); the first run is kept alongside so neither
+        # hides.
         coo = rmat_matrix(scale=9, edge_factor=6, seed=2, cache=False)
         r = run_spmv_benchmark(
-            coo, name="t", impl="sell-xla", iters=3, chip="cpu",
-            pack_repeats=2,
+            coo, name="t", impl="sell", iters=3, pack_repeats=2,
         )
         assert r.preproc_first_s is not None
         assert r.preproc_first_s >= r.preproc_s
         r1 = run_spmv_benchmark(
-            coo, name="t", impl="sell-xla", iters=3, chip="cpu"
+            coo, name="t", impl="sell", iters=3
         )
         assert r1.preproc_first_s is None
 
@@ -68,13 +67,13 @@ class TestHarness:
             vals=np.array([1.0], dtype=np.float32),
             shape=(2, 3),
         )
-        r = run_spmv_benchmark(coo, iters=1, chip="cpu")
+        r = run_spmv_benchmark(coo, iters=1)
         assert r.verified
 
     def test_report_grep_contract(self, capsys):
         r = BenchResult(
             name="m.mtx",
-            impl="sell-xla",
+            impl="sell",
             nnz=100,
             padded_nnz=128,
             preproc_s=0.5,
@@ -126,10 +125,10 @@ class TestReport:
 def test_benchmark_rectangular():
     """The harness benchmarks non-square matrices (the reference accepts
     any .mtx): the timing loop slices/pads the carry around A."""
-    from tests.conftest import make_random_coo
+    from conftest import make_random_coo
     from cvr_tpu.bench.harness import run_spmv_benchmark
 
     coo = make_random_coo(900, 500, density=0.02, seed=8)
-    r = run_spmv_benchmark(coo, name="rect", impl="sell-xla", iters=4)
+    r = run_spmv_benchmark(coo, name="rect", impl="sell", iters=4)
     assert r.verified
     assert r.spmv_s > 0

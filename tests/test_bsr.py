@@ -1,5 +1,5 @@
-"""BSR-128 dense-brick SpMM: pack round-trip, MXU-path correctness vs a
-float64 golden, the infeasibility gate, native/NumPy pack parity, and the
+"""BSR-128 dense-brick SpMM: pack round-trip, batched-matmul correctness
+vs a float64 golden, the infeasibility gate, native/NumPy pack parity, and the
 spmm dispatcher.  The correctness contract is the reference's in-binary
 golden check (spmv.cpp:1916-1938) extended to multi-RHS.
 """
@@ -7,7 +7,7 @@ golden check (spmv.cpp:1916-1938) extended to multi-RHS.
 import numpy as np
 import pytest
 
-from tests.conftest import make_random_coo
+from conftest import make_random_coo
 
 from cvr_tpu.bench.synthetic import banded_matrix
 from cvr_tpu.formats.bsr import B, BsrInfeasible, BsrMatrix, bsr_pack
@@ -108,16 +108,15 @@ def test_bsr_spmm_dispatcher():
 
 
 def _check_pallas(coo, K=17, seed=9, **kw):
-    from cvr_tpu.ops.pallas_bsr import bsr_spmm_pallas
-
+    """The jitted dispatcher path at a K that is no power of two."""
     csr = coo.to_csr()
-    dev = to_device_bsr(bsr_pack(csr, **kw))
+    bm = bsr_pack(csr, **kw)
     X = (
         np.random.default_rng(seed)
         .standard_normal((coo.shape[1], K))
         .astype(np.float32)
     )
-    Y = np.asarray(bsr_spmm_pallas(dev, X))
+    Y = np.asarray(spmm(bm, X))
     gold, scale = _golden(coo, X)
     maxrel = (np.abs(Y - gold) / scale).max()
     assert maxrel < 1e-6, maxrel
@@ -138,15 +137,10 @@ def test_bsr_pallas_rect_and_kpad():
 def test_bsr_empty_row_block():
     """A 128-row block with no nonzeros at all.
 
-    The fused Pallas kernel zeroes an output block only when a brick
-    visits it; in compiled mode an unvisited block is uninitialized HBM
-    (interpret mode zero-fills, hiding the bug).  The pack therefore
-    guarantees every row block is visited by an all-zero brick — assert
-    that structural invariant here (it is what compiled mode relies on),
-    plus exact zeros end-to-end on both SpMM paths.
+    No brick visits it, so its Y rows come only from the segment-sum's
+    zero fill: exact zeros end-to-end on both SpMM entries.
     """
     from cvr_tpu.formats.coo import COOMatrix
-    from cvr_tpu.ops.pallas_bsr import bsr_spmm_pallas
 
     # rows [128, 384) form two entirely empty row blocks
     rows = np.array([0, 5, 127, 400, 450, 511], dtype=np.int32)
@@ -154,8 +148,7 @@ def test_bsr_empty_row_block():
     vals = np.arange(1, 7, dtype=np.float32)
     coo = COOMatrix(rows=rows, cols=cols, vals=vals, shape=(512, 512))
     bm = bsr_pack(coo.to_csr(), min_fill=0.0)
-    # every row block visited (what the compiled Pallas kernel needs)
-    assert set(bm.brick_row.tolist()) == set(range(4))
+    assert set(bm.brick_row.tolist()) == {0, 3}
     key = bm.brick_row.astype(np.int64) * (1 << 32) + bm.brick_col
     assert (np.diff(key) >= 0).all() and (np.diff(bm.brick_row) >= 0).all()
 
@@ -165,7 +158,7 @@ def test_bsr_empty_row_block():
         .astype(np.float32)
     )
     dev = to_device_bsr(bm)
-    for fn in (spmm_bsr, bsr_spmm_pallas):
+    for fn in (spmm_bsr, spmm):
         Y = np.asarray(fn(dev, X))
         gold, scale = _golden(coo, X)
         assert (np.abs(Y - gold) / scale).max() < 1e-6

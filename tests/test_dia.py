@@ -8,7 +8,7 @@ spmv.cpp:1916-1938; CVR's lockstep-streaming best case on regular rows).
 import numpy as np
 import pytest
 
-from tests.conftest import make_powerlaw_coo, make_random_coo
+from conftest import make_powerlaw_coo, make_random_coo
 
 from cvr_tpu.bench.synthetic import banded_matrix
 from cvr_tpu.formats.dia import DiaInfeasible, DiaMatrix, dia_pack
@@ -185,8 +185,10 @@ def test_cli_dia_save_load(tmp_path, capsys):
 
 
 def test_dia_xla_and_pallas_agree():
-    from cvr_tpu.ops.pallas_dia import spmv_dia_pallas
-    from cvr_tpu.ops.spmv_dia import spmv_dia_xla
+    """The shifted-FMA DIA SpMV and the SELL gather SpMV (two independent
+    formulations) both meet the golden on a wider band."""
+    from cvr_tpu.formats.sell import sell_pack
+    from cvr_tpu.ops.spmv import sell_spmv_xla, to_device
 
     coo = banded_matrix(n=9000, bandwidth=13, seed=8)
     csr = coo.to_csr()
@@ -194,39 +196,44 @@ def test_dia_xla_and_pallas_agree():
     x = np.random.default_rng(2).standard_normal(9000).astype(np.float32)
     gold = spmv_golden_numpy(csr, x)
     rs = spmv_row_scale(csr, x)
-    for fn in (spmv_dia_pallas, spmv_dia_xla):
-        ok, nbad, mx = verify(
-            np.asarray(fn(sd, x)), gold, rtol=1e-6, row_scale=rs
-        )
-        assert ok, (fn.__name__, nbad, mx)
+    ys = {
+        "dia": spmv_dia(sd, x),
+        "sell": sell_spmv_xla(to_device(sell_pack(csr)), x),
+    }
+    for name, y in ys.items():
+        ok, nbad, mx = verify(np.asarray(y), gold, rtol=1e-6, row_scale=rs)
+        assert ok, (name, nbad, mx)
 
 
 def test_dia_spmm_pallas_and_xla_agree():
-    from cvr_tpu.ops.pallas_dia import spmm_dia_pallas
-    from cvr_tpu.ops.spmv_dia import spmm_dia, spmm_dia_xla
+    """DIA SpMM (jitted dispatcher and direct) against the SELL SpMM and
+    the float64 golden."""
+    from cvr_tpu.formats.sell import sell_pack
+    from cvr_tpu.ops.spmv import sell_spmm_xla, spmm, to_device
 
     coo = banded_matrix(n=7000, bandwidth=9, seed=4)
     csr = coo.to_csr()
-    sd = to_device_dia(dia_pack(csr))
+    dm = dia_pack(csr)
     X = np.random.default_rng(1).standard_normal((7000, 11)).astype(
         np.float32
     )
     m64 = coo.to_scipy().astype(np.float64)
     gold = m64 @ X
     scale = abs(m64) @ np.abs(X) + 1e-30
-    for fn in (spmm_dia, spmm_dia_pallas, spmm_dia_xla):
-        Y = np.asarray(fn(sd, X))
-        assert (np.abs(Y - gold) / scale).max() < 1e-6, fn.__name__
+    Ys = {
+        "dispatcher": spmm(dm, X),
+        "dia": spmm_dia(to_device_dia(dm), X),
+        "sell": sell_spmm_xla(to_device(sell_pack(csr)), X),
+    }
+    for name, Y in Ys.items():
+        assert (np.abs(np.asarray(Y) - gold) / scale).max() < 1e-6, name
 
 
 def test_dia_wide_rectangular_pallas():
-    """Wide rectangular matrices (ncols far beyond the reachable rows)
-    used to drive the Pallas kernels' tail pad negative (jnp.pad
-    ValueError); both kernels now slice x/X to the reachable rows first
-    (ADVICE r2: spmv_dia.py:89 / pallas_dia.py:111)."""
+    """Wide rectangular matrices (ncols far beyond the reachable rows):
+    the padded x/X tail must not go negative (jnp.pad ValueError)."""
     from cvr_tpu.formats.coo import COOMatrix
-    from cvr_tpu.ops.pallas_dia import spmm_dia_pallas, spmv_dia_pallas
-    from cvr_tpu.ops.spmv_dia import spmm_dia
+    from cvr_tpu.ops.spmv import spmm
 
     n, m = 1000, 3000
     r = np.arange(n, dtype=np.int32)
@@ -237,17 +244,16 @@ def test_dia_wide_rectangular_pallas():
         shape=(n, m),
     )
     csr = coo.to_csr()
-    sd = to_device_dia(dia_pack(csr))
+    dm = dia_pack(csr)
     m64 = coo.to_scipy().astype(np.float64)
 
     X = np.random.default_rng(1).standard_normal((m, 5)).astype(np.float32)
     gold = m64 @ X
     scale = abs(m64) @ np.abs(X) + 1e-30
-    for fn in (spmm_dia, spmm_dia_pallas):  # dispatcher AND direct
-        Y = np.asarray(fn(sd, X))
-        assert (np.abs(Y - gold) / scale).max() < 1e-6, fn.__name__
+    for Y in (spmm(dm, X), spmm_dia(to_device_dia(dm), X)):
+        assert (np.abs(np.asarray(Y) - gold) / scale).max() < 1e-6
 
-    # SpMV with ncols beyond the kernel's padded x length
+    # SpMV with ncols far beyond the padded x length
     coo_w = COOMatrix(
         rows=r, cols=(r + 500).astype(np.int32),
         vals=coo.vals, shape=(n, 40000),
@@ -255,7 +261,7 @@ def test_dia_wide_rectangular_pallas():
     csr_w = coo_w.to_csr()
     sd_w = to_device_dia(dia_pack(csr_w))
     x = np.random.default_rng(2).standard_normal(40000).astype(np.float32)
-    y = np.asarray(spmv_dia_pallas(sd_w, x))
+    y = np.asarray(spmv_dia(sd_w, x))
     ok, nbad, mx = verify(
         y, spmv_golden_numpy(csr_w, x),
         rtol=1e-6, row_scale=spmv_row_scale(csr_w, x),

@@ -112,72 +112,6 @@ class TestDistSpmv:
         assert ok, f"{nbad} bad rows, max rel {maxrel}"
 
 
-def test_dist_window_spmv_matches_golden():
-    """The fused window kernel per shard under shard_map (the
-    full-strength distributed path, cvr_tpu/parallel/dist_window.py)."""
-    import jax
-
-    from cvr_tpu.bench.synthetic import banded_matrix
-    from cvr_tpu.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
-    from cvr_tpu.parallel.dist import make_mesh
-    from cvr_tpu.parallel.dist_window import (
-        dist_spmv_window,
-        dist_window_pack,
-    )
-
-    coo = banded_matrix(n=6000, bandwidth=11, seed=3)
-    csr = coo.to_csr()
-    mesh = make_mesh(8)
-    dm = dist_window_pack(csr, mesh)
-    x = (
-        np.random.default_rng(5)
-        .standard_normal(csr.shape[1])
-        .astype(np.float32)
-    )
-    y = np.asarray(jax.jit(lambda v: dist_spmv_window(dm, v))(x))
-    ok, nbad, maxrel = verify(
-        y,
-        spmv_golden_numpy(csr, x),
-        rtol=1e-4,
-        row_scale=spmv_row_scale(csr, x),
-    )
-    assert ok, f"{nbad} bad rows, max rel {maxrel}"
-
-
-def test_dist_window_spmv_x_sharded():
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from cvr_tpu.bench.synthetic import banded_matrix
-    from cvr_tpu.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
-    from cvr_tpu.parallel.dist import AXIS, make_mesh
-    from cvr_tpu.parallel.dist_window import (
-        dist_spmv_window,
-        dist_window_pack,
-    )
-
-    coo = banded_matrix(n=4096, bandwidth=9, seed=4)
-    csr = coo.to_csr()
-    mesh = make_mesh(8)
-    dm = dist_window_pack(csr, mesh)
-    x = (
-        np.random.default_rng(6)
-        .standard_normal(csr.shape[1])
-        .astype(np.float32)
-    )
-    xs = jax.device_put(x, NamedSharding(mesh, P(AXIS)))
-    y = np.asarray(
-        jax.jit(lambda v: dist_spmv_window(dm, v, x_sharded=True))(xs)
-    )
-    ok, nbad, maxrel = verify(
-        y,
-        spmv_golden_numpy(csr, x),
-        rtol=1e-4,
-        row_scale=spmv_row_scale(csr, x),
-    )
-    assert ok, f"{nbad} bad rows, max rel {maxrel}"
-
-
 def test_dist_xsharded_uneven_ncols():
     """ncols not divisible by the shard count with x_sharded=True (the
     round-1 gap): x is padded to a device multiple before shard_map and

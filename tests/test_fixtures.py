@@ -70,28 +70,26 @@ def test_all_spmv_paths_on_fixture(path):
     gold = spmv_golden_numpy(csr, x)
     rs = spmv_row_scale(csr, x)
 
+    from cvr_tpu.formats import pack_auto
+    from cvr_tpu.formats.bell import BellInfeasible, bell_pack
+    from cvr_tpu.formats.dia import DiaInfeasible, dia_pack
     from cvr_tpu.formats.sell import sell_pack
-    from cvr_tpu.formats.sell_routed import sell_pack_routed
-    from cvr_tpu.ops.spmv import sell_spmv_xla, to_device
-    from cvr_tpu.ops.spmv_routed import spmv_routed, to_device_routed
+    from cvr_tpu.ops.spmv import sell_spmv_xla, spmv, to_device
 
     ys = {
         "sell-xla": np.asarray(
             sell_spmv_xla(to_device(sell_pack(csr)), x)
         ),
-        "routed": np.asarray(
-            spmv_routed(to_device_routed(sell_pack_routed(csr)), x)
-        ),
+        "auto": np.asarray(spmv(pack_auto(csr), x)),
     }
-    from cvr_tpu.formats.sell_window import WindowInfeasible, sell_pack_window
-    from cvr_tpu.ops.spmv_window import spmv_window, to_device_window
-
-    try:
-        ys["window"] = np.asarray(
-            spmv_window(to_device_window(sell_pack_window(csr)), x)
-        )
-    except WindowInfeasible:
-        pass
+    for name, pack, declined in (
+        ("dia", dia_pack, DiaInfeasible),
+        ("bell", bell_pack, BellInfeasible),
+    ):
+        try:
+            ys[name] = np.asarray(spmv(pack(csr), x))
+        except declined:
+            pass
 
     for name, y in ys.items():
         ok, nbad, maxrel = verify(y, gold, rtol=1e-6, row_scale=rs)
@@ -111,13 +109,18 @@ def test_spmm_paths_on_fixture():
     scale = abs(m64) @ np.abs(X.astype(np.float64)) + 1e-30
 
     from cvr_tpu.formats.bsr import bsr_pack
-    from cvr_tpu.ops.pallas_bsr import bsr_spmm_pallas
+    from cvr_tpu.formats.sell import sell_pack
     from cvr_tpu.ops.spmm_bsr import spmm_bsr, to_device_bsr
+    from cvr_tpu.ops.spmv import sell_spmm_xla, spmm, to_device
 
-    dev = to_device_bsr(bsr_pack(csr, min_fill=0.0))
-    for fn in (spmm_bsr, bsr_spmm_pallas):
-        Y = np.asarray(fn(dev, X))
-        assert (np.abs(Y - gold) / scale).max() < 1e-6
+    bm = bsr_pack(csr, min_fill=0.0)
+    Ys = (
+        spmm_bsr(to_device_bsr(bm), X),
+        spmm(bm, X),
+        sell_spmm_xla(to_device(sell_pack(csr)), X),
+    )
+    for Y in Ys:
+        assert (np.abs(np.asarray(Y) - gold) / scale).max() < 1e-6
 
 
 @pytest.mark.parametrize("path", ["bus240.mtx", "snap300.mtx.gz"])
@@ -139,9 +142,9 @@ def test_cli_compare_on_fixture(capsys):
     rc = main(["compare", str(FIX / "bus240.mtx"), "--iters", "2"])
     out = capsys.readouterr().out
     assert rc == 0
-    # all four SpMV impls appear in one table
-    for impl in ("csr", "sell-xla", "sell-routed", "sell-window"):
-        assert f"[threads: {impl}]" in out or f"[{impl}] failed" in out
+    # every SpMV impl appears in one table (a declining gate says so)
+    for impl in ("csr", "sell", "dia", "bell"):
+        assert f"[threads: {impl}]" in out or f"[{impl}] skipped" in out
     assert "Best:" in out
 
 

@@ -12,8 +12,6 @@ from cvr_tpu.formats.coo import COOMatrix
 from cvr_tpu.formats.csr import CSRMatrix
 from cvr_tpu.formats.sell import SellMatrix, sell_pack, sell_unpack
 
-from conftest import make_powerlaw_coo, make_random_coo
-
 
 def csr_equal(a: CSRMatrix, b: CSRMatrix) -> bool:
     return (
@@ -159,26 +157,3 @@ class TestPowerlawFixture:
     def test_is_heavy_tailed(self, powerlaw_coo):
         lengths = powerlaw_coo.to_csr().row_lengths
         assert lengths.max() > 10 * max(lengths.mean(), 1)
-
-
-def test_pack_auto_degrades_above_routed_cap(monkeypatch, recwarn):
-    """When the routed path raises (one-chip T cap), pack_auto must
-    degrade to plain SELL with a shard-me hint, not raise (VERDICT r2
-    weak #5).  The cap itself is exercised at scale by
-    scripts/sweep.py --cap-check."""
-    import cvr_tpu.formats as F
-    from cvr_tpu.formats.sell import SellMatrix
-    import cvr_tpu.formats.sell_routed as srmod
-
-    def boom(csr, split_len=None):
-        raise ValueError("matrix too large for one chip's routed path")
-
-    def no_window(csr, **kw):
-        raise F.WindowInfeasible("forced")
-
-    monkeypatch.setattr(srmod, "sell_pack_routed", boom)
-    monkeypatch.setattr(F, "sell_pack_window", no_window)
-    coo = make_powerlaw_coo(2000, 2000, seed=3)
-    packed = F.pack_auto(coo.to_csr())
-    assert isinstance(packed, SellMatrix)
-    assert any("row-shard" in str(w.message) for w in recwarn.list)

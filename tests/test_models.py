@@ -123,38 +123,9 @@ class TestPowerIteration:
         assert abs(abs(float(lam)) - abs(lam_ref)) / abs(lam_ref) < 1e-3
 
 
-def test_pagerank_routed():
-    import numpy as np
-
-    from cvr_tpu.formats.coo import COOMatrix
-    from cvr_tpu.formats.sell_routed import sell_pack_routed
-    from cvr_tpu.models.pagerank import pagerank_routed
-    from cvr_tpu.ops.spmv_routed import to_device_routed
-
-    rng = np.random.default_rng(1)
-    n = 1500
-    rows = np.repeat(np.arange(n, dtype=np.int32), 6)
-    cols = rng.integers(0, n, size=6 * n).astype(np.int32)
-    adj = COOMatrix(
-        rows, cols, np.ones(6 * n, dtype=np.float32), (n, n)
-    ).sum_duplicates()
-    deg = np.zeros(n)
-    np.add.at(deg, adj.rows, adj.vals)
-    adjT = COOMatrix(adj.cols, adj.rows, adj.vals, (n, n))
-    sdT = to_device_routed(sell_pack_routed(adjT.to_csr()))
-    import jax.numpy as jnp
-
-    p, iters, delta = pagerank_routed(
-        sdT, out_degree=jnp.asarray(deg.astype(np.float32)), tol=1e-8
-    )
-    p = np.asarray(p)
-    assert abs(p.sum() - 1.0) < 1e-3
-    assert (p >= -1e-7).all()
-
-
 def test_bicgstab_nonsymmetric():
     """BiCGSTAB on a nonsymmetric diagonally dominant band, driven by
-    the window SpMV kernel."""
+    the SpMV dispatcher on what pack_auto picks."""
     import scipy.sparse as sp
 
     from cvr_tpu.formats.coo import COOMatrix
@@ -237,8 +208,8 @@ def test_subspace_iteration_spmm():
 
 
 def test_jacobi_reported_residual_matches_iterate():
-    """The returned residual must describe the returned x (ADVICE r2:
-    the loop used to report the PREVIOUS iterate's residual)."""
+    """The returned residual must describe the returned x (the loop once
+    reported the PREVIOUS iterate's residual)."""
     from cvr_tpu.models import jacobi
 
     n = 64
@@ -259,7 +230,7 @@ def test_jacobi_reported_residual_matches_iterate():
 def test_bicgstab_breakdown_guard():
     """An exact breakdown (b orthogonal to the Krylov progress, here a
     singular A with b partly outside its range) must not produce NaNs
-    (ADVICE r2: unguarded rho / r_hat.v / omega denominators)."""
+    (guarded rho / r_hat.v / omega denominators)."""
     from cvr_tpu.models import bicgstab
 
     n = 32

@@ -126,3 +126,29 @@ class TestNativeSellPack:
         np.testing.assert_array_equal(back.rowptr, csr.rowptr)
         np.testing.assert_array_equal(back.cols, csr.cols)
         np.testing.assert_array_equal(back.vals, csr.vals)
+
+
+class TestNativeBuild:
+    def test_rebuilds_unless_stamped_with_this_source(self, tmp_path):
+        import shutil
+
+        d = tmp_path / "native"
+        d.mkdir()
+        for name in ("cvr_native.cpp", "Makefile"):
+            shutil.copy(_native._SO_PATH.parent / name, d / name)
+        so = d / "libcvr_native.so"
+        stamp = so.with_suffix(".stamp")
+        so.write_bytes(b"built elsewhere")  # no stamp: must be replaced
+        assert _native._build_if_needed(so)
+        assert so.stat().st_size > 1000
+        assert stamp.read_text() == _native.source_hash(d)
+        first = so.stat().st_mtime_ns
+        # a library stamped with this source's hash is reused as it is
+        assert _native._build_if_needed(so)
+        assert so.stat().st_mtime_ns == first
+        # a library from older source is rebuilt
+        src = d / "cvr_native.cpp"
+        src.write_text(src.read_text() + "\n// changed\n")
+        old = stamp.read_text()
+        assert _native._build_if_needed(so)
+        assert stamp.read_text() == _native.source_hash(d) != old
