@@ -23,7 +23,7 @@ import sys
 CVR_KNL_WEBGRAPH_GFLOPS = 7.28
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="small matrix")
     ap.add_argument("--impl", default="auto")
@@ -38,7 +38,7 @@ def main() -> int:
         "amortize metric stays comparable to the paper's cold-pack 2.14.",
     )
     ap.add_argument("--json-only", action="store_true")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     # Start faulting the allocator arena now, overlapped with matrix
     # generation and jax/XLA startup (see cvr_tpu/utils/memarena.py).

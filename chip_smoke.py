@@ -7,9 +7,11 @@
   python chip_smoke.py --rehearse    # tiny sizes on the CPU backend
 
 Phases: 1 device, 2 compile check of every kernel at real widths, 3
-MatrixMarket ingest, 4 main path (run_spmv_benchmark, impl="auto") on
+MatrixMarket ingest, 4 main path: run_spmv_benchmark(impl="auto") on
 web-Google-like, soc-LiveJournal-full-like, banded-2M and road-usa-like,
-5 PageRank and CG, 6 the tests marked ``gpu``.  Every SpMV/SpMM result is
+then the CLI (``cvr_tpu.cli.main``: spmv and compare, SpMV and SpMM) on
+the ingested .mtx files and ``bench.py``'s main, 5 PageRank and CG, 6 the
+tests marked ``gpu``.  Every SpMV/SpMM result is
 checked against the float64 golden at rtol 1e-6 with the row-scaled
 bound.  One process drives the card(s); the last line of stdout is one
 JSON object, {"ok": true, "device": {...}} on success.  Without a GPU
@@ -19,9 +21,13 @@ JSON object, {"ok": true, "device": {...}} on success.  Without a GPU
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -48,6 +54,8 @@ class Smoke:
         self.tag = f"[{self.info.kind} | {self.smi}]"
         self.tiny = args.rehearse
         self._mats = {}
+        self.workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+        self.mtx = {}  # matrix name -> .mtx path written by phase 3
 
     def say(self, phase, msg):
         print(f"[{phase}] {self.tag} {msg}", flush=True)
@@ -72,6 +80,9 @@ class Smoke:
                 ),
                 "banded-1M": lambda: syn.banded_matrix(
                     (1 << 12) if self.tiny else (1 << 20), bandwidth=27, seed=1
+                ),
+                "banded-256K": lambda: syn.banded_matrix(
+                    (1 << 12) if self.tiny else (1 << 18), bandwidth=27, seed=2
                 ),
                 "road-usa-like": lambda: syn.road_usa_like(
                     n=(1 << 14) if self.tiny else (1 << 23)
@@ -116,12 +127,22 @@ class Smoke:
     # -- phases ----------------------------------------------------------
     def phase_device(self):
         from cvr_tpu import _native
+        from cvr_tpu.bench.harness import converter_label
 
         devs = self.jax.devices()
         self.say("1 device", f"platform {self.info.platform}, kind "
                  f"{self.info.kind}, count {self.info.count}: {devs}")
         native = _native.available()
-        self.say("1 device", f"native library loaded: {native}")
+        cxx = os.environ.get("CXX", "g++")
+        try:
+            cxx_version = subprocess.run(
+                [cxx, "--version"], capture_output=True, text=True, timeout=30
+            ).stdout.partition("\n")[0]
+        except OSError as e:
+            cxx_version = repr(e)
+        self.say("1 device", f"native library loaded: {native}; pack times "
+                 f"below are from: {converter_label(_native.omp_threads())}; "
+                 f"compiler {cxx}: {cxx_version}")
         if not native:
             raise RuntimeError(
                 f"the native library did not build or load: {_native.build_error}")
@@ -168,31 +189,30 @@ class Smoke:
                 self.check_spmv("2 compile", f"{what} on {name}", csr, y, x)
 
     def phase_ingest(self):
-        import tempfile
-
         import numpy as np
 
         import cvr_tpu
 
-        coo, csr = self.matrix("web-Google-like")
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "web-Google-like.mtx")
+        for name in ("web-Google-like", "banded-256K"):
+            coo, csr = self.matrix(name)
+            path = os.path.join(self.workdir.name, f"{name}.mtx")
             t0 = time.perf_counter()
             cvr_tpu.write_matrix_market(path, coo)
             t_w = time.perf_counter() - t0
             t0 = time.perf_counter()
             back = cvr_tpu.read_matrix_market(path).to_csr()
             t_r = time.perf_counter() - t0
-        same = (
-            back.shape == csr.shape
-            and np.array_equal(back.rowptr, csr.rowptr)
-            and np.array_equal(back.cols, csr.cols)
-            and np.allclose(back.vals, csr.vals, rtol=1e-6)
-        )
-        self.say("3 ingest", f"web-Google-like .mtx: written in {t_w:.2f} s, "
-                 f"read back in {t_r:.2f} s, identical: {same}")
-        if not same:
-            raise AssertionError("MatrixMarket round trip changed the matrix")
+            same = (
+                back.shape == csr.shape
+                and np.array_equal(back.rowptr, csr.rowptr)
+                and np.array_equal(back.cols, csr.cols)
+                and np.allclose(back.vals, csr.vals, rtol=1e-6)
+            )
+            self.say("3 ingest", f"{name} .mtx: written in {t_w:.2f} s, "
+                     f"read back in {t_r:.2f} s, identical: {same}")
+            if not same:
+                raise AssertionError(f"MatrixMarket round trip changed {name}")
+            self.mtx[name] = path
 
     def _copy_bandwidth(self):
         """Bytes/s of a large elementwise copy (read + write) on the card."""
@@ -229,6 +249,48 @@ class Smoke:
                      f"{'PASS' if r.verified else 'FAIL'} (max err {r.max_rel_err:.2e})")
             if not r.verified:
                 raise AssertionError(f"{name} failed verification")
+
+    def phase_cli(self):
+        """The CLI through its main(), in this process, on phase 3's files."""
+        from cvr_tpu import cli
+
+        web, band = self.mtx["web-Google-like"], self.mtx["banded-256K"]
+        for argv in (
+            ["spmv", web, "--iters", "50"],
+            ["compare", web, "--iters", "50"],
+            ["spmv", band, "--format", "bsr", "--rhs", "128", "--iters", "20"],
+            ["compare", band, "--rhs", "32", "--iters", "20"],
+        ):
+            shown = " ".join(os.path.basename(a) for a in argv)
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            self.say("4 cli", f"python -m cvr_tpu.cli {shown}: exit {rc} "
+                     f"in {time.perf_counter() - t0:.1f} s")
+            if rc != 0:
+                raise AssertionError(f"cvr_tpu.cli {shown} exited {rc}")
+
+    def phase_bench(self):
+        """bench.py's main, in this process; its JSON line names the card."""
+        from cvr_tpu import platform
+
+        import bench
+
+        argv = ["--quick", "--iters", "5"] if self.tiny else []
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            print(line)
+        line = json.loads(lines[-1])
+        self.say("4 bench", f"python bench.py {' '.join(argv)}: exit {rc}, "
+                 f"{line['value']} {line['unit']}, device {line['device']}, "
+                 f"power limit {line['power_limit']}")
+        if rc != 0:
+            raise AssertionError(f"bench.py exited {rc}")
+        if (line["device"] != self.info.as_dict()
+                or line["power_limit"] != platform.power_limit()):
+            raise AssertionError("bench.py's JSON line names another device")
 
     def phase_models(self):
         import numpy as np
@@ -351,6 +413,12 @@ class Smoke:
                  f"({2 * csr.nnz / t1 / 1e9:.2f} GFLOPS); 4-card speedup {t1 / t4:.2f}x")
 
     def run(self):
+        try:
+            self._run()
+        finally:
+            self.workdir.cleanup()
+
+    def _run(self):
         if self.info.platform != "gpu" and not self.args.rehearse:
             raise RuntimeError(
                 f"no GPU: JAX found {self.info.platform} ({self.info.kind})")
@@ -364,6 +432,8 @@ class Smoke:
         self.phase_compile()
         self.phase_ingest()
         self.phase_main()
+        self.phase_cli()
+        self.phase_bench()
         self.phase_models()
         self.phase_gpu_tests()
 

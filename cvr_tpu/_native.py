@@ -99,6 +99,7 @@ def get_lib():
 
     lib.cvr_last_error.restype = ctypes.c_char_p
     lib.cvr_version.restype = ctypes.c_int
+    lib.cvr_omp_threads.restype = ctypes.c_int
     lib.cvr_mtx_open.restype = ctypes.c_int
     lib.cvr_mtx_open.argtypes = [
         ctypes.c_char_p,
@@ -149,7 +150,8 @@ def get_lib():
         _i64, _i64p, _i32p, _f32p, _i64, _i64, _i64, _i64,
         _i16p, _f32p, _i64, _i32p, _i32p, _f32p,
     ]
-    if lib.cvr_version() != 17:
+    if lib.cvr_version() != 18:
+        build_error = f"library version {lib.cvr_version()}, expected 18"
         return None
     _LIB = lib
     return _LIB
@@ -367,6 +369,13 @@ def dia_fill_native(rowptr, cols, vals, offsets, nrows: int):
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def omp_threads() -> int | None:
+    """Threads of the native converter: 0 when the library was built
+    without OpenMP (serial), None when there is no native library."""
+    lib = get_lib()
+    return None if lib is None else int(lib.cvr_omp_threads())
 
 
 def bell_stats_native(rowptr, cols, cap: int):

@@ -22,7 +22,14 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from cvr_tpu.formats.bsr import B, BsrMatrix, bsr_pack
+from cvr_tpu.formats.bsr import (
+    MAX_BYTES,
+    B,
+    BsrMatrix,
+    bsr_pack,
+    check_bytes,
+    ell_width,
+)
 from cvr_tpu.formats.csr import CSRMatrix
 from cvr_tpu.ops.spmm_bsr import brick_ell
 from cvr_tpu.parallel.dist import AXIS, make_mesh  # noqa: F401
@@ -75,7 +82,11 @@ def dist_bsr_pack(
 
     nrb_local = rb_bounds[1:] - rb_bounds[:-1]
     nrb_local_max = max(1, int(nrb_local.max()))
-    maxb = max(1, int(np.bincount(bm.brick_row, minlength=nrb).max()) if nb else 1)
+    maxb = ell_width(bm.brick_row, nrb)
+    check_bytes(
+        D * nrb_local_max * maxb, pack_kw.get("max_bytes", MAX_BYTES),
+        f"stacked over {D} shards",
+    )
 
     vals = np.zeros((D, nrb_local_max, maxb, B, B), dtype=np.float32)
     cols = np.zeros((D, nrb_local_max, maxb), dtype=np.int32)

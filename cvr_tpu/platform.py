@@ -1,9 +1,9 @@
 """The one place that decides what the backend JAX found means.
 
-* ``cpu``: where the tests run.  Pallas kernels run in interpret mode,
-  and no device metric (roofline share, bandwidth) is reported.
-* ``gpu``: the target (NVIDIA H100).  Pallas kernels compile through
-  Triton; nothing falls back to the interpreter or to a reference.
+* ``cpu``: where the tests run.  No device metric (roofline share,
+  bandwidth) is reported.
+* ``gpu``: the target (NVIDIA H100).  Nothing falls back to the CPU or
+  to a reference.
 * anything else: an error.
 """
 
@@ -42,11 +42,6 @@ def device_info() -> DeviceInfo:
             f"({info.kind}); supported: {', '.join(SUPPORTED)}"
         )
     return info
-
-
-def interpret_mode() -> bool:
-    """``interpret=`` for every pallas_call: True on the CPU backend only."""
-    return device_info().platform == "cpu"
 
 
 @functools.lru_cache(maxsize=None)

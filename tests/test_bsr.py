@@ -137,8 +137,9 @@ def test_bsr_pallas_rect_and_kpad():
 def test_bsr_empty_row_block():
     """A 128-row block with no nonzeros at all.
 
-    No brick visits it, so its Y rows come only from the segment-sum's
-    zero fill: exact zeros end-to-end on both SpMM entries.
+    No occupied brick belongs to it, so its slots in the device layout
+    are all zero padding bricks: exact zeros end-to-end on both SpMM
+    entries.
     """
     from cvr_tpu.formats.coo import COOMatrix
 
@@ -163,3 +164,38 @@ def test_bsr_empty_row_block():
         gold, scale = _golden(coo, X)
         assert (np.abs(Y - gold) / scale).max() < 1e-6
         assert (Y[128:384] == 0).all()
+
+
+def _one_wide_row_block(n=4096):
+    """Row block 0 touches every column block; every other row block
+    holds one diagonal brick."""
+    from cvr_tpu.formats.coo import COOMatrix
+
+    rows = np.concatenate([np.arange(n // B) % B, np.arange(B, n, B)])
+    cols = np.concatenate([np.arange(0, n, B), np.arange(B, n, B)])
+    vals = np.ones(rows.shape[0], dtype=np.float32)
+    return COOMatrix(rows=rows.astype(np.int32), cols=cols.astype(np.int32),
+                     vals=vals, shape=(n, n))
+
+
+def test_bsr_gate_counts_device_layout():
+    """The gate charges the padded device layout, not the brick count:
+    63 occupied bricks fit in 100 bricks' worth of bytes, but the layout
+    (32 row blocks x 32 slots) does not."""
+    coo = _one_wide_row_block()
+    brick = B * B * 4
+    with pytest.raises(BsrInfeasible, match="on the device"):
+        bsr_pack(coo.to_csr(), min_fill=0.0, max_bytes=100 * brick)
+    bm = bsr_pack(coo.to_csr(), min_fill=0.0, max_bytes=32 * 32 * brick)
+    assert bm.nbricks == 63
+    assert to_device_bsr(bm).vals.shape == (32, 32, B, B)
+
+
+def test_dist_bsr_gate_counts_stacked_layout():
+    from cvr_tpu.parallel.dist_bsr import dist_bsr_pack, make_mesh
+
+    coo = _one_wide_row_block()
+    brick = B * B * 4
+    with pytest.raises(BsrInfeasible, match="stacked over 8 shards"):
+        dist_bsr_pack(coo.to_csr(), make_mesh(8), min_fill=0.0,
+                      max_bytes=32 * 32 * brick)
