@@ -99,7 +99,9 @@ def get_lib():
 
     lib.cvr_last_error.restype = ctypes.c_char_p
     lib.cvr_version.restype = ctypes.c_int
+    lib.cvr_version.argtypes = []
     lib.cvr_omp_threads.restype = ctypes.c_int
+    lib.cvr_omp_threads.argtypes = []
     lib.cvr_mtx_open.restype = ctypes.c_int
     lib.cvr_mtx_open.argtypes = [
         ctypes.c_char_p,
